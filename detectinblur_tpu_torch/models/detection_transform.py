@@ -1,0 +1,107 @@
+"""Batched normalize + resize into a static model bucket.
+
+Port of ``detectinblur_tpu/models/detection_transform.py``: every image is
+normalized, resized so its min side reaches ``min_size`` (max side at most
+``max_size``) with torch bilinear (``align_corners=False``), and placed at
+the top-left of a zero [Ho, Wo] bucket; its new valid size travels beside
+it.
+
+The sizes are computed on the host in float32, with the same arithmetic as
+the JAX version, from ``hw`` (a host array), so no device sync is needed to
+size the ``F.interpolate`` calls. The JAX version replicates the last valid
+row and column one pixel outward (``resize_valid`` :57-60) because its
+bucket holds zeros there; interpolating only the valid crop clamps at its
+edge, which is the same thing.
+
+The per-image mean/std overrides (blur-conditional normalization),
+``normalize=False`` and ``crop_images=True`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def _host_hw(hw) -> np.ndarray:
+    if isinstance(hw, torch.Tensor):
+        hw = hw.cpu().numpy()
+    return np.asarray(hw).astype(np.int64).reshape(-1, 2)
+
+
+def resize_scale(h, w, min_size: int, max_size: int) -> np.ndarray:
+    """torchvision _resize_image_and_masks scale (float32): min_size/min
+    clamped so the max side stays <= max_size."""
+    h = np.float32(h)
+    w = np.float32(w)
+    return np.minimum(np.float32(min_size) / np.minimum(h, w),
+                      np.float32(max_size) / np.maximum(h, w))
+
+
+def resized_valid_hw(hw, out_shape: Tuple[int, int], min_size: int = 800,
+                     max_size: int = 1333) -> np.ndarray:
+    """New valid sizes [B, 2] inside the ``out_shape`` bucket
+    (``resize_into_bucket`` :83): output size = floor(size * scale), the
+    scale shrunk (aspect kept) if the image would overflow the bucket."""
+    Ho, Wo = out_shape
+    out = []
+    for h, w in _host_hw(hw):
+        hf, wf = np.float32(h), np.float32(w)
+        scale = resize_scale(h, w, min_size, max_size)
+        scale = np.minimum(scale, np.minimum(np.float32(Ho) / hf,
+                                             np.float32(Wo) / wf))
+        out.append((min(int(np.floor(hf * scale)), Ho),
+                    min(int(np.floor(wf * scale)), Wo)))
+    return np.asarray(out, np.int64)
+
+
+def normalize_image(image: torch.Tensor) -> torch.Tensor:
+    """ImageNet (image - mean) / std over the trailing channel axis."""
+    mean = torch.tensor(IMAGENET_MEAN, device=image.device)
+    std = torch.tensor(IMAGENET_STD, device=image.device)
+    return (image - mean) / std
+
+
+def resize_boxes(boxes: torch.Tensor, orig_hw: torch.Tensor,
+                 new_hw: torch.Tensor) -> torch.Tensor:
+    """torchvision resize_boxes with independent x/y ratios; ``orig_hw``
+    and ``new_hw`` [..., 2] broadcast against ``boxes[..., 0, :]``."""
+    orig_hw = orig_hw.float()
+    ry = new_hw[..., 0:1].float() / orig_hw[..., 0:1]
+    rx = new_hw[..., 1:2].float() / orig_hw[..., 1:2]
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([x1 * rx, y1 * ry, x2 * rx, y2 * ry], dim=-1)
+
+
+def preprocess_batch(
+    images: torch.Tensor,   # [B, Hb0, Wb0, 3] raw 0..1, valid at top-left
+    hw,                     # [B, 2] valid sizes, host array or tensor
+    out_shape: Tuple[int, int],
+    min_size: int = 800,
+    max_size: int = 1333,
+):
+    """Batched normalize + resize into the model bucket.
+
+    Returns (batched [B, Ho, Wo, 3] float32, new_hw [B, 2] int64 on the
+    images' device).
+    """
+    Ho, Wo = out_shape
+    B = images.shape[0]
+    device = images.device
+    hw_np = _host_hw(hw)
+    new_hw = resized_valid_hw(hw_np, out_shape, min_size, max_size)
+    out = images.new_zeros(B, Ho, Wo, images.shape[-1], dtype=torch.float32)
+    for b in range(B):
+        h, w = (int(v) for v in hw_np[b])
+        nh, nw = (int(v) for v in new_hw[b])
+        img = normalize_image(images[b, :h, :w].float())
+        resized = F.interpolate(img.permute(2, 0, 1)[None], size=(nh, nw),
+                                mode="bilinear", align_corners=False)
+        out[b, :nh, :nw] = resized[0].permute(1, 2, 0)
+    return out, torch.as_tensor(new_hw, device=device)

@@ -1,0 +1,178 @@
+"""Faster R-CNN ResNet50-FPN inference in torch.
+
+Port of ``detectinblur_tpu/models/faster_rcnn.py`` (``FasterRCNNConfig``
+:48, ``Detections`` :71, ``FasterRCNN.predict`` :210):
+
+  raw bucketed images [B, Hb, Wb, 3] + valid sizes
+    -> normalize + resize into the model bucket
+    -> ResNet50-FPN (P2..P6)
+    -> RPN -> RoIAlign (the CUDA kernel on the card, the plain version on
+       the CPU) -> TwoMLPHead + predictor -> postprocess -> boxes rescaled
+       to input coordinates.
+
+``predict`` is the composition of the public stage methods
+``preprocess``, ``features``, ``propose``, ``pool`` and ``detect``, which
+a caller may also run one by one (the smoke script times them so).
+
+Precision is a config field (``utils/device.py``): ``highest`` keeps every
+weight and activation in float32 with TF32 off; ``default`` holds the
+backbone and heads in bfloat16. The Squint warp, the BatchNorm remedies
+and the loss are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+from torch import nn
+
+from detectinblur_tpu_torch.models.detection_transform import (
+    preprocess_batch,
+    resize_boxes,
+)
+from detectinblur_tpu_torch.models.resnet import ResNetFPN
+from detectinblur_tpu_torch.models.roi_heads import (
+    BoxHeadConfig,
+    FastRCNNPredictor,
+    TwoMLPHead,
+    postprocess_detections,
+)
+from detectinblur_tpu_torch.models.rpn import (
+    RPNConfig,
+    RPNHead,
+    level_anchors,
+    run_rpn,
+)
+from detectinblur_tpu_torch.ops.roi_align_cuda import multiscale_roi_align_cuda
+from detectinblur_tpu_torch.utils.device import (
+    DEFAULT_PRECISION,
+    act_dtype,
+    check_precision,
+    resolve_device,
+    set_fp32_math,
+)
+
+
+class FasterRCNNConfig(NamedTuple):
+    num_classes: int = 91
+    min_size: int = 800
+    max_size: int = 1333
+    rpn: RPNConfig = RPNConfig()
+    box: BoxHeadConfig = BoxHeadConfig()
+    precision: str = DEFAULT_PRECISION
+
+
+class Detections(NamedTuple):
+    boxes: torch.Tensor     # [B, D, 4] in input (pre-resize) valid coords
+    scores: torch.Tensor    # [B, D]
+    labels: torch.Tensor    # [B, D]
+    valid: torch.Tensor     # [B, D]
+
+
+class FasterRCNN(nn.Module):
+    """Parameters live in the submodules ``backbone`` / ``rpn_head`` /
+    ``box_head`` / ``box_predictor``, named as the JAX param tree's top
+    level so ``utils/convert.params_from_jax`` maps onto them.
+
+    The model is built on ``device`` (CUDA unless the caller asks for
+    another), initialised from a ``torch.Generator`` seeded with ``seed``
+    as the JAX initialisers do: kaiming-normal fan_out trunk, kaiming
+    uniform a=1 FPN, N(0, 0.01) RPN head, torch Linear defaults for the
+    box head and predictor."""
+
+    def __init__(self, config: FasterRCNNConfig = FasterRCNNConfig(),
+                 device=None, seed: int = 0):
+        super().__init__()
+        check_precision(config.precision)
+        self.cfg = config
+        device = resolve_device(device)
+        # Built on the CPU (or on `meta`, for shapes only) and moved after
+        # the seeded initialisation, so the weights do not depend on the
+        # device.
+        with torch.device("meta" if device.type == "meta" else "cpu"):
+            self.backbone = ResNetFPN()
+            self.rpn_head = RPNHead()
+            self.box_head = TwoMLPHead()
+            self.box_predictor = FastRCNNPredictor(
+                num_classes=config.num_classes)
+        if device.type != "meta":
+            self.reset_parameters(torch.Generator().manual_seed(seed))
+        self._anchors = {}
+        if device.type == "cuda":
+            set_fp32_math()
+        self.to(device=device, dtype=act_dtype(config.precision),
+                memory_format=torch.channels_last)
+        self.eval()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.backbone.reset_parameters(generator)
+        self.rpn_head.reset_parameters(generator)
+        for m in (*self.box_head.children(), *self.box_predictor.children()):
+            # torch nn.Linear default init, drawn from the generator.
+            bound = 1.0 / m.in_features ** 0.5
+            nn.init.kaiming_uniform_(m.weight, a=5 ** 0.5, generator=generator)
+            nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.rpn_head.conv.weight.device
+
+    # ------------------------------------------------------------- stages
+    def preprocess(self, images: torch.Tensor, hw, bucket: Tuple[int, int]):
+        """-> (batched [B, Ho, Wo, 3] float32, new_hw [B, 2])."""
+        return preprocess_batch(images, hw, bucket, self.cfg.min_size,
+                                self.cfg.max_size)
+
+    def features(self, batched: torch.Tensor):
+        """-> (P2, P3, P4, P5, P6) NHWC in the activation dtype."""
+        return self.backbone(batched)
+
+    def propose(self, feats, new_hw: torch.Tensor):
+        """-> (proposals [B, P, 4], valid [B, P])."""
+        key = tuple(tuple(f.shape[1:3]) for f in feats)
+        if key not in self._anchors:
+            self._anchors[key] = level_anchors(feats)
+        out = run_rpn(self.rpn_head, feats, new_hw, self.cfg.rpn,
+                      anchors=self._anchors[key])
+        return out.proposals, out.proposal_valid
+
+    def pool(self, feats, proposals: torch.Tensor, valid: torch.Tensor):
+        """RoIAlign of the proposals on P2..P5 -> [B, P, 7, 7, C].
+
+        Invalid slots carry NMS-suppressed boxes whose outputs are masked
+        out later; they are zeroed first, as in the JAX version."""
+        rois = torch.where(valid[..., None], proposals,
+                           torch.zeros_like(proposals))
+        # Channels-last levels are contiguous NHWC already (a no-op).
+        return multiscale_roi_align_cuda([f.contiguous() for f in feats[:4]],
+                                         rois)
+
+    def detect(self, pooled: torch.Tensor, proposals: torch.Tensor,
+               valid: torch.Tensor, new_hw: torch.Tensor,
+               hw) -> Detections:
+        """Box head + predictor + postprocess + rescale to input coords."""
+        B, P = proposals.shape[:2]
+        x = self.box_head(pooled.reshape(B * P, *pooled.shape[2:]))
+        logits, deltas = self.box_predictor(x)
+        boxes, scores, labels, det_valid = postprocess_detections(
+            logits.reshape(B, P, -1), deltas.reshape(B, P, -1), proposals,
+            valid, new_hw, self.cfg.box)
+        orig_hw = torch.as_tensor(hw, device=boxes.device)
+        boxes = resize_boxes(boxes, new_hw, orig_hw)
+        return Detections(boxes, scores, labels, det_valid)
+
+    # ---------------------------------------------------------- inference
+    @torch.no_grad()
+    def predict(self, images: torch.Tensor, hw,
+                bucket: Tuple[int, int]) -> Detections:
+        """images [B, Hb0, Wb0, 3] raw 0..1 with the valid region at the
+        top-left, ``hw`` [B, 2] valid sizes (a host array), ``bucket`` the
+        static model bucket -> fixed-size ``Detections``."""
+        batched, new_hw = self.preprocess(images.to(self.device), hw, bucket)
+        feats = self.features(batched)
+        proposals, valid = self.propose(feats, new_hw)
+        pooled = self.pool(feats, proposals, valid)
+        return self.detect(pooled, proposals, valid, new_hw, hw)
+

@@ -1,0 +1,157 @@
+"""ResNet50-FPN backbone in torch (port of ``detectinblur_tpu/models/resnet.py``).
+
+Module names mirror the JAX param tree (``body.layer1_0.conv1``,
+``fpn.inner_0`` ...) so ``utils/convert.py`` maps it key for key.
+Convolutions run channels-last: the NHWC input permuted to NCHW is already
+a channels-last tensor, and so are all activations after it. The public
+boundary stays NHWC, as in the JAX package.
+
+FrozenBatchNorm is the affine (scale, bias) pair of the JAX version, kept
+as buffers; a fresh module is the identity.
+
+Initialisation follows the JAX initialisers (resnet.py:59-82):
+kaiming-normal fan_out for the trunk convs, kaiming-uniform a=1 for the
+FPN convs with zero bias.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+RESNET50_LAYERS = (3, 4, 6, 3)
+_WIDTHS = (64, 128, 256, 512)
+
+
+class FrozenBatchNorm(nn.Module):
+    """Affine-only BatchNorm over NCHW: y = x * scale + bias."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.register_buffer("scale", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+
+    def forward(self, x):
+        return (x * self.scale.to(x.dtype)[:, None, None]
+                + self.bias.to(x.dtype)[:, None, None])
+
+
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
+                     bias=False)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, cin: int, width: int, stride: int = 1):
+        super().__init__()
+        out_ch = width * self.expansion
+        self.conv1 = _conv(cin, width, 1)
+        self.bn1 = FrozenBatchNorm(width)
+        self.conv2 = _conv(width, width, 3, stride)
+        self.bn2 = FrozenBatchNorm(width)
+        self.conv3 = _conv(width, out_ch, 1)
+        self.bn3 = FrozenBatchNorm(out_ch)
+        self.downsample_0: Optional[nn.Conv2d] = None
+        if cin != out_ch or stride != 1:
+            self.downsample_0 = _conv(cin, out_ch, 1, stride)
+            self.downsample_1 = FrozenBatchNorm(out_ch)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        identity = x
+        if self.downsample_0 is not None:
+            identity = self.downsample_1(self.downsample_0(x))
+        return F.relu(y + identity)
+
+
+class ResNet(nn.Module):
+    """torchvision-layout ResNet50 trunk returning (C2, C3, C4, C5), NCHW
+    channels-last."""
+
+    def __init__(self, layers: Sequence[int] = RESNET50_LAYERS):
+        super().__init__()
+        self.layers = tuple(layers)
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = FrozenBatchNorm(64)
+        cin = 64
+        for i, (n_blocks, width) in enumerate(zip(self.layers, _WIDTHS)):
+            for b in range(n_blocks):
+                stride = 2 if (b == 0 and i > 0) else 1
+                self.add_module(f"layer{i + 1}_{b}",
+                                Bottleneck(cin, width, stride))
+                cin = width * Bottleneck.expansion
+
+    def forward(self, x) -> Tuple[torch.Tensor, ...]:
+        x = F.relu(self.bn1(self.conv1(x)))
+        # torch maxpool pads with -inf, as the JAX version does explicitly.
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        outs = []
+        for i, n_blocks in enumerate(self.layers):
+            for b in range(n_blocks):
+                x = getattr(self, f"layer{i + 1}_{b}")(x)
+            outs.append(x)
+        return tuple(outs)
+
+
+class FPN(nn.Module):
+    """Feature Pyramid Network with LastLevelMaxPool (P2..P5 + P6)."""
+
+    def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
+                 out_channels: int = 256):
+        super().__init__()
+        self.n = len(in_channels)
+        for i, c in enumerate(in_channels):
+            self.add_module(f"inner_{i}", nn.Conv2d(c, out_channels, 1))
+            self.add_module(f"layer_{i}",
+                            nn.Conv2d(out_channels, out_channels, 3,
+                                      padding=1))
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        laterals = [getattr(self, f"inner_{i}")(f)
+                    for i, f in enumerate(feats)]
+        ps = [laterals[-1]]
+        for i in range(len(laterals) - 2, -1, -1):
+            up = F.interpolate(ps[0], size=laterals[i].shape[-2:],
+                               mode="nearest")
+            ps.insert(0, laterals[i] + up)
+        outs = [getattr(self, f"layer_{i}")(p) for i, p in enumerate(ps)]
+        # LastLevelMaxPool: 1x1 window, stride 2 == subsample by 2.
+        return outs + [outs[-1][:, :, ::2, ::2]]
+
+
+class ResNetFPN(nn.Module):
+    """images NHWC [B, H, W, 3] -> (P2, P3, P4, P5, P6), each NHWC."""
+
+    def __init__(self, out_channels: int = 256):
+        super().__init__()
+        self.body = ResNet()
+        self.fpn = FPN(out_channels=out_channels)
+
+    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        dtype = self.body.conv1.weight.dtype
+        x = images.to(dtype).permute(0, 3, 1, 2)     # channels-last NCHW
+        feats = self.fpn(self.body(x))
+        return tuple(f.permute(0, 2, 3, 1) for f in feats)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name, m in self.named_modules():
+            if isinstance(m, nn.Conv2d):
+                if name.startswith("fpn."):
+                    nn.init.kaiming_uniform_(m.weight, a=1,
+                                             generator=generator)
+                    nn.init.zeros_(m.bias)
+                else:
+                    nn.init.kaiming_normal_(m.weight, mode="fan_out",
+                                            nonlinearity="relu",
+                                            generator=generator)
+            elif isinstance(m, FrozenBatchNorm):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
