@@ -1,7 +1,8 @@
-"""Faster R-CNN ResNet50-FPN inference in torch.
+"""Faster R-CNN ResNet50-FPN inference and training loss in torch.
 
 Port of ``detectinblur_tpu/models/faster_rcnn.py`` (``FasterRCNNConfig``
-:48, ``Detections`` :71, ``FasterRCNN.predict`` :210):
+:48, ``Detections`` :71, ``FasterRCNN.predict`` :210, ``FasterRCNN.loss``
+:277):
 
   raw bucketed images [B, Hb, Wb, 3] + valid sizes
     -> normalize + resize into the model bucket
@@ -14,15 +15,21 @@ Port of ``detectinblur_tpu/models/faster_rcnn.py`` (``FasterRCNNConfig``
 ``preprocess``, ``features``, ``propose``, ``pool`` and ``detect``, which
 a caller may also run one by one (the smoke script times them so).
 
+``loss`` runs the same stages in training form (train top-k sizes, anchor
+and roi sampling, RoIAlign through the differentiable kernel pair) and
+returns the four torchvision losses; it batches over the images where the
+JAX version vmaps.
+
 Precision is a config field (``utils/device.py``): ``highest`` keeps every
-weight and activation in float32 with TF32 off; ``default`` holds the
-backbone and heads in bfloat16. The Squint warp, the BatchNorm remedies
-and the loss are not ported yet.
+activation in float32 with TF32 off; ``default`` computes the backbone and
+heads in bfloat16. Parameters are float32 in both (each layer casts its
+weights to its input's dtype). The Squint warp, the per-image
+normalization overrides and the BatchNorm remedies are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,12 +43,15 @@ from detectinblur_tpu_torch.models.roi_heads import (
     BoxHeadConfig,
     FastRCNNPredictor,
     TwoMLPHead,
+    fastrcnn_loss,
     postprocess_detections,
+    select_training_samples,
 )
 from detectinblur_tpu_torch.models.rpn import (
     RPNConfig,
     RPNHead,
     level_anchors,
+    rpn_loss,
     run_rpn,
 )
 from detectinblur_tpu_torch.ops.roi_align_cuda import multiscale_roi_align_cuda
@@ -70,6 +80,14 @@ class Detections(NamedTuple):
     valid: torch.Tensor     # [B, D]
 
 
+class LossDraws(NamedTuple):
+    """The uniform keys of the loss's two balanced samplers, one row per
+    image: ``rpn`` = (u_pos, u_neg), each [B, sum_A]; ``roi`` = (u_pos,
+    u_neg), each [B, P + G] (P the train post-NMS proposal count)."""
+    rpn: Tuple[torch.Tensor, torch.Tensor]
+    roi: Tuple[torch.Tensor, torch.Tensor]
+
+
 class FasterRCNN(nn.Module):
     """Parameters live in the submodules ``backbone`` / ``rpn_head`` /
     ``box_head`` / ``box_predictor``, named as the JAX param tree's top
@@ -91,7 +109,7 @@ class FasterRCNN(nn.Module):
         # the seeded initialisation, so the weights do not depend on the
         # device.
         with torch.device("meta" if device.type == "meta" else "cpu"):
-            self.backbone = ResNetFPN()
+            self.backbone = ResNetFPN(act_dtype=act_dtype(config.precision))
             self.rpn_head = RPNHead()
             self.box_head = TwoMLPHead()
             self.box_predictor = FastRCNNPredictor(
@@ -101,8 +119,7 @@ class FasterRCNN(nn.Module):
         self._anchors = {}
         if device.type == "cuda":
             set_fp32_math()
-        self.to(device=device, dtype=act_dtype(config.precision),
-                memory_format=torch.channels_last)
+        self.to(device=device, memory_format=torch.channels_last)
         self.eval()
 
     @torch.no_grad()
@@ -129,13 +146,17 @@ class FasterRCNN(nn.Module):
         """-> (P2, P3, P4, P5, P6) NHWC in the activation dtype."""
         return self.backbone(batched)
 
-    def propose(self, feats, new_hw: torch.Tensor):
-        """-> (proposals [B, P, 4], valid [B, P])."""
+    def level_anchors(self, feats):
+        """``rpn.level_anchors`` for these feature shapes, cached."""
         key = tuple(tuple(f.shape[1:3]) for f in feats)
         if key not in self._anchors:
             self._anchors[key] = level_anchors(feats)
+        return self._anchors[key]
+
+    def propose(self, feats, new_hw: torch.Tensor):
+        """-> (proposals [B, P, 4], valid [B, P])."""
         out = run_rpn(self.rpn_head, feats, new_hw, self.cfg.rpn,
-                      anchors=self._anchors[key])
+                      anchors=self.level_anchors(feats))
         return out.proposals, out.proposal_valid
 
     def pool(self, feats, proposals: torch.Tensor, valid: torch.Tensor):
@@ -176,3 +197,54 @@ class FasterRCNN(nn.Module):
         pooled = self.pool(feats, proposals, valid)
         return self.detect(pooled, proposals, valid, new_hw, hw)
 
+    # ------------------------------------------------------------ training
+    def loss(self, images: torch.Tensor, hw, gt_boxes: torch.Tensor,
+             gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+             bucket: Tuple[int, int],
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[LossDraws] = None) -> Dict[str, torch.Tensor]:
+        """The four torchvision training losses of a batch, with a graph
+        back to the parameters.
+
+        ``images`` [B, Hb0, Wb0, 3] raw 0..1, ``hw`` [B, 2] valid sizes,
+        ``gt_boxes`` [B, G, 4] in input coordinates with ``gt_labels`` and
+        ``gt_valid`` [B, G]. The samplers draw from ``generator`` (on the
+        model's device) or take ``draws``. Normalized as the JAX version
+        (and torchvision): RPN sums over the batch's sampled anchors, head
+        sums over its sampled rois."""
+        cfg = self.cfg
+        device = self.device
+        B = images.shape[0]
+        batched, new_hw = self.preprocess(images.to(device), hw, bucket)
+        gt = resize_boxes(gt_boxes.to(device).float(),
+                          torch.as_tensor(hw, device=device), new_hw)
+        gt_labels = gt_labels.to(device)
+        gt_valid = gt_valid.to(device).bool()
+
+        feats = self.features(batched)
+        rpn = run_rpn(self.rpn_head, feats, new_hw, cfg.rpn,
+                      anchors=self.level_anchors(feats), training=True)
+        rpn_box, rpn_obj, rpn_n = rpn_loss(
+            rpn.objectness, rpn.pred_deltas, rpn.anchors, gt, gt_valid,
+            cfg.rpn, generator, None if draws is None else draws.rpn)
+
+        rois, roi_labels, reg_targets, roi_valid = select_training_samples(
+            rpn.proposals, rpn.proposal_valid, gt, gt_labels, gt_valid,
+            cfg.box, generator, None if draws is None else draws.roi)
+        # Unsampled slots are zeroed before pooling; their cotangents are
+        # exactly zero, and the backward kernel skips them.
+        pooled = self.pool(feats, rois, roi_valid)
+        S = rois.shape[1]
+        x = self.box_head(pooled.reshape(B * S, *pooled.shape[2:]))
+        logits, deltas = self.box_predictor(x)
+        ce_sum, box_sum, n = fastrcnn_loss(
+            logits.reshape(B, S, -1), deltas.reshape(B, S, -1), roi_labels,
+            reg_targets)
+        n_rpn = rpn_n.sum().clamp(min=1)
+        n_tot = n.sum().clamp(min=1)
+        return {
+            "loss_objectness": rpn_obj.sum() / n_rpn,
+            "loss_rpn_box_reg": rpn_box.sum() / n_rpn,
+            "loss_classifier": ce_sum.sum() / n_tot,
+            "loss_box_reg": box_sum.sum() / n_tot,
+        }

@@ -9,6 +9,12 @@ boundary stays NHWC, as in the JAX package.
 FrozenBatchNorm is the affine (scale, bias) pair of the JAX version, kept
 as buffers; a fresh module is the identity.
 
+Parameters stay float32 in every precision; ``Conv2d`` and ``Linear`` cast
+their weights to the dtype of their input on each call, as the JAX modules'
+``dtype=ACT_DTYPE`` does, so throughput mode computes in bfloat16 while SGD
+updates float32 weights (a bfloat16 weight would round a warmup-sized
+update away).
+
 Initialisation follows the JAX initialisers (resnet.py:59-82):
 kaiming-normal fan_out for the trunk convs, kaiming-uniform a=1 for the
 FPN convs with zero bias.
@@ -26,6 +32,21 @@ RESNET50_LAYERS = (3, 4, 6, 3)
 _WIDTHS = (64, 128, 256, 512)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype (float32 parameters)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype (float32 parameters)."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class FrozenBatchNorm(nn.Module):
     """Affine-only BatchNorm over NCHW: y = x * scale + bias."""
 
@@ -39,9 +60,9 @@ class FrozenBatchNorm(nn.Module):
                 + self.bias.to(x.dtype)[:, None, None])
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
-                     bias=False)
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
+                  bias=False)
 
 
 class Bottleneck(nn.Module):
@@ -56,7 +77,7 @@ class Bottleneck(nn.Module):
         self.bn2 = FrozenBatchNorm(width)
         self.conv3 = _conv(width, out_ch, 1)
         self.bn3 = FrozenBatchNorm(out_ch)
-        self.downsample_0: Optional[nn.Conv2d] = None
+        self.downsample_0: Optional[Conv2d] = None
         if cin != out_ch or stride != 1:
             self.downsample_0 = _conv(cin, out_ch, 1, stride)
             self.downsample_1 = FrozenBatchNorm(out_ch)
@@ -78,7 +99,7 @@ class ResNet(nn.Module):
     def __init__(self, layers: Sequence[int] = RESNET50_LAYERS):
         super().__init__()
         self.layers = tuple(layers)
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
         cin = 64
         for i, (n_blocks, width) in enumerate(zip(self.layers, _WIDTHS)):
@@ -108,10 +129,9 @@ class FPN(nn.Module):
         super().__init__()
         self.n = len(in_channels)
         for i, c in enumerate(in_channels):
-            self.add_module(f"inner_{i}", nn.Conv2d(c, out_channels, 1))
+            self.add_module(f"inner_{i}", Conv2d(c, out_channels, 1))
             self.add_module(f"layer_{i}",
-                            nn.Conv2d(out_channels, out_channels, 3,
-                                      padding=1))
+                            Conv2d(out_channels, out_channels, 3, padding=1))
 
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         laterals = [getattr(self, f"inner_{i}")(f)
@@ -127,16 +147,18 @@ class FPN(nn.Module):
 
 
 class ResNetFPN(nn.Module):
-    """images NHWC [B, H, W, 3] -> (P2, P3, P4, P5, P6), each NHWC."""
+    """images NHWC [B, H, W, 3] -> (P2, P3, P4, P5, P6), each NHWC in
+    ``act_dtype``."""
 
-    def __init__(self, out_channels: int = 256):
+    def __init__(self, out_channels: int = 256,
+                 act_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.act_dtype = act_dtype
         self.body = ResNet()
         self.fpn = FPN(out_channels=out_channels)
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        dtype = self.body.conv1.weight.dtype
-        x = images.to(dtype).permute(0, 3, 1, 2)     # channels-last NCHW
+        x = images.to(self.act_dtype).permute(0, 3, 1, 2)  # channels-last NCHW
         feats = self.fpn(self.body(x))
         return tuple(f.permute(0, 2, 3, 1) for f in feats)
 

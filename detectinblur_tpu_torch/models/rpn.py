@@ -1,15 +1,19 @@
-"""Region Proposal Network, inference branch (port of ``detectinblur_tpu/models/rpn.py``).
+"""Region Proposal Network (port of ``detectinblur_tpu/models/rpn.py``).
 
 Fixed shapes as in the JAX version: per-level top-k, clip, small-box mask,
 per-level NMS, post-NMS top-k, all over padded tensors with ``valid``
 masks, and batched over the images (and levels) instead of vmapped. The
-anchor assignment, sampling and loss are training code and are not ported
-yet.
+training pieces (anchor matching, the balanced sampler, the loss) are
+batched the same way.
+
+Random sampling cannot reproduce ``jax.random``'s streams: the sampler
+draws its uniforms from a ``torch.Generator``, or takes them from the
+caller (``draws``), which is how the tests feed it the JAX draws.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -17,7 +21,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from detectinblur_tpu_torch.models.anchors import grid_anchors
-from detectinblur_tpu_torch.ops.boxes import clip_boxes_to_image, decode_boxes
+from detectinblur_tpu_torch.models.resnet import Conv2d
+from detectinblur_tpu_torch.ops.boxes import (
+    box_iou,
+    clip_boxes_to_image,
+    decode_boxes,
+    encode_boxes,
+)
 from detectinblur_tpu_torch.ops.nms import NEG_INF, grouped_nms_presorted
 
 
@@ -28,9 +38,9 @@ class RPNHead(nn.Module):
 
     def __init__(self, in_channels: int = 256, num_anchors: int = 3):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, in_channels, 3, padding=1)
-        self.cls_logits = nn.Conv2d(in_channels, num_anchors, 1)
-        self.bbox_pred = nn.Conv2d(in_channels, num_anchors * 4, 1)
+        self.conv = Conv2d(in_channels, in_channels, 3, padding=1)
+        self.cls_logits = Conv2d(in_channels, num_anchors, 1)
+        self.bbox_pred = Conv2d(in_channels, num_anchors * 4, 1)
 
     def forward(self, features: Sequence[torch.Tensor]):
         """features: levels NHWC [B, H, W, C] -> (logits [B, H*W*A],
@@ -121,6 +131,108 @@ def filter_proposals(
     return out, valid
 
 
+def assign_targets_to_anchors(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                              gt_valid: torch.Tensor, fg_iou: float,
+                              bg_iou: float):
+    """torchvision Matcher(0.7, 0.3, allow_low_quality_matches=True),
+    batched: ``anchors`` [A, 4], ``gt_boxes`` [B, G, 4] padded, ``gt_valid``
+    [B, G] -> (labels [B, A] in {-1 ignore, 0 bg, 1 fg}, matches [B, A] gt
+    index). Images without a valid GT get all-background labels."""
+    iou = box_iou(gt_boxes, anchors)                     # [B, G, A]
+    iou = torch.where(gt_valid[..., None], iou, torch.full_like(iou, -1.0))
+    matched_vals = iou.amax(dim=1)
+    matches = iou.argmax(dim=1)                          # first max, as JAX
+    labels = torch.where(matched_vals >= fg_iou, 1, -1)
+    labels = torch.where(matched_vals < bg_iou, 0, labels)
+    # Low-quality matches: any anchor achieving a gt's best IoU is fg.
+    best_per_gt = iou.amax(dim=2, keepdim=True)          # [B, G, 1]
+    is_best = (iou == best_per_gt) & gt_valid[..., None] & (best_per_gt > 0)
+    labels = torch.where(is_best.any(dim=1), 1, labels)
+    return torch.where(gt_valid.any(dim=1, keepdim=True), labels, 0), matches
+
+
+def balanced_sample(labels: torch.Tensor, batch_size: int,
+                    positive_fraction: float,
+                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """BalancedPositiveNegativeSampler over the last axis of ``labels``
+    [..., A] in {-1, 0, 1} -> (pos_mask, neg_mask).
+
+    Each of the two subsets is the ``n`` candidates with the smallest
+    uniform keys, ties to the lower index (``jax.lax.top_k``'s order, here
+    a stable sort). The keys are ``draws = (u_pos, u_neg)``, each shaped
+    like ``labels``, or are drawn from ``generator``."""
+    pos = labels == 1
+    neg = labels == 0
+    if draws is None:
+        draws = tuple(torch.rand(labels.shape, generator=generator,
+                                 device=labels.device) for _ in range(2))
+    u_pos, u_neg = draws
+    max_pos = int(batch_size * positive_fraction)
+    A = labels.shape[-1]
+
+    def pick(mask, cap, n_take, u):
+        cap = min(cap, A)   # tiny anchor grids: A < budget
+        r = torch.where(mask, u.to(labels.device), torch.inf)
+        idx = torch.sort(r, dim=-1, stable=True)[1][..., :cap]
+        first = torch.arange(cap, device=labels.device) < n_take[..., None]
+        return torch.zeros_like(mask).scatter_(-1, idx, first) & mask
+
+    num_pos = pos.sum(-1).clamp(max=max_pos)
+    sel_pos = pick(pos, max_pos, num_pos, u_pos)
+    num_neg = torch.minimum(neg.sum(-1), batch_size - num_pos)
+    sel_neg = pick(neg, batch_size, num_neg, u_neg)
+    return sel_pos, sel_neg
+
+
+def smooth_l1(x: torch.Tensor, beta: float) -> torch.Tensor:
+    ax = x.abs()
+    return torch.where(ax < beta, 0.5 * ax * ax / beta, ax - 0.5 * beta)
+
+
+def rpn_loss(objectness: torch.Tensor, pred_deltas: torch.Tensor,
+             anchors: torch.Tensor, gt_boxes: torch.Tensor,
+             gt_valid: torch.Tensor, cfg: RPNConfig,
+             generator: Optional[torch.Generator] = None, draws=None):
+    """Per-image RPN loss sums, batched: ``objectness`` [B, A],
+    ``pred_deltas`` [B, A, 4], ``anchors`` [A, 4], ``gt_boxes`` [B, G, 4]
+    -> (box_l [B], obj_l [B], n [B] sampled count, at least 1). The caller
+    sums over the batch and divides by the total count, as torchvision's
+    compute_loss does. ``draws`` feeds ``balanced_sample``.
+
+    Box regression touches only the <= 128 sampled positives, compacted
+    into fixed slots (ties to the lower index). Slots that hold no positive
+    are masked before ``smooth_l1``, so a degenerate target there (a padded
+    GT box encodes to -inf) yields no NaN gradient; the loss is the JAX
+    version's."""
+    labels, matches = assign_targets_to_anchors(
+        anchors, gt_boxes, gt_valid, cfg.fg_iou_thresh, cfg.bg_iou_thresh)
+    sel_pos, sel_neg = balanced_sample(labels, cfg.batch_size_per_image,
+                                       cfg.positive_fraction, generator, draws)
+    sampled = sel_pos | sel_neg
+
+    max_pos = min(int(cfg.batch_size_per_image * cfg.positive_fraction),
+                  sel_pos.shape[-1])
+    pos_idx = torch.sort(sel_pos.float(), dim=-1, descending=True,
+                         stable=True)[1][:, :max_pos]             # [B, P]
+    pos_ok = torch.gather(sel_pos, 1, pos_idx)
+    gt_idx = torch.gather(matches, 1, pos_idx)
+    targets = encode_boxes(
+        torch.gather(gt_boxes, 1, gt_idx[..., None].expand(-1, -1, 4)),
+        anchors[pos_idx], (1.0, 1.0, 1.0, 1.0))
+    picked = torch.gather(pred_deltas, 1, pos_idx[..., None].expand(-1, -1, 4))
+    diff = torch.where(pos_ok[..., None], picked - targets,
+                       torch.zeros((), device=picked.device))
+    box_l = smooth_l1(diff, 1.0 / 9).sum(dim=(1, 2))
+    obj_t = labels.to(objectness.dtype)
+    bce = (torch.maximum(objectness, torch.zeros_like(objectness))
+           - objectness * obj_t
+           + torch.log1p(torch.exp(-objectness.abs())))
+    obj_l = torch.where(sampled, bce, torch.zeros_like(bce)).sum(dim=1)
+    n = sampled.sum(dim=1).clamp(min=1)
+    return box_l, obj_l, n
+
+
 class RPNOutputs(NamedTuple):
     proposals: torch.Tensor       # [B, P, 4]
     proposal_valid: torch.Tensor  # [B, P]
@@ -144,9 +256,12 @@ def level_anchors(features: Sequence[torch.Tensor],
 
 def run_rpn(head: RPNHead, features: Sequence[torch.Tensor],
             image_hw: torch.Tensor, cfg: RPNConfig = RPNConfig(),
-            anchors=None) -> RPNOutputs:
-    """Run the RPN (inference) over a batch of NHWC levels P2..P6.
+            anchors=None, training: bool = False) -> RPNOutputs:
+    """Run the RPN over a batch of NHWC levels P2..P6.
 
+    ``training`` selects the train top-k sizes. Proposals are decoded from
+    detached deltas and objectness (the JAX version's ``stop_gradient``);
+    ``objectness`` and ``pred_deltas`` keep their graph for the loss.
     ``anchors`` may pass a cached ``level_anchors(features)`` result."""
     logits, deltas = head(features)
     if anchors is None:
@@ -154,10 +269,12 @@ def run_rpn(head: RPNHead, features: Sequence[torch.Tensor],
     anchors, anchors_per_level = anchors
     objectness = torch.cat(logits, dim=1)                 # [B, sum_A]
     pred_deltas = torch.cat(deltas, dim=1)                # [B, sum_A, 4]
-    props = decode_boxes(pred_deltas, anchors[None], (1.0, 1.0, 1.0, 1.0))
+    props = decode_boxes(pred_deltas.detach(), anchors[None],
+                         (1.0, 1.0, 1.0, 1.0))
+    pre_n = cfg.pre_nms_top_n_train if training else cfg.pre_nms_top_n_test
+    post_n = cfg.post_nms_top_n_train if training else cfg.post_nms_top_n_test
     boxes, valid = filter_proposals(
-        props, objectness, anchors_per_level, image_hw,
-        cfg.pre_nms_top_n_test, cfg.post_nms_top_n_test, cfg.nms_thresh,
-        cfg.min_size)
+        props, objectness.detach(), anchors_per_level, image_hw, pre_n,
+        post_n, cfg.nms_thresh, cfg.min_size)
     return RPNOutputs(boxes, valid, objectness, pred_deltas, anchors,
                       anchors_per_level)

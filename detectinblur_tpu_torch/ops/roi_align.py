@@ -15,7 +15,9 @@ position; they differ only in how they sum.
 
 The plain version is the straightforward gather form (4 corner rows per
 sample point), chunked over rois to bound its memory; it is not the TPU's
-quad buffer.
+quad buffer. Its transpose, ``roi_align_backward_from_geometry``, scatters
+each bin's cotangent back onto the same corners with ``index_add_``; it is
+the CPU path of the gradient and the oracle of the CUDA backward kernel.
 """
 
 from __future__ import annotations
@@ -106,35 +108,74 @@ def roi_align_from_geometry(features: Sequence[torch.Tensor],
     g = geom.y_idx.shape[1] // s
     flat = torch.cat([f.reshape(-1, C) for f in features])
     sizes = [(f.shape[0], f.shape[1], f.shape[2]) for f in features]
-    base, acc = [], 0
-    for B_, H_, W_ in sizes:
-        base.append(acc)
-        acc += B_ * H_ * W_
-    device = flat.device
-    base_t = torch.tensor(base, device=device)
-    hw_t = torch.tensor([H_ * W_ for _, H_, W_ in sizes], device=device)
-    w_t = torch.tensor([W_ for _, _, W_ in sizes], device=device)
 
     out = []
     for lo in range(0, N, chunk):
         hi = min(N, lo + chunk)
-        lvl = geom.level[lo:hi].long()
-        img = torch.arange(lo, hi, device=device) // rois_per_image
-        row0 = base_t[lvl] + img * hw_t[lvl]                       # [n]
-        W = w_t[lvl]
-        # Sample grid [n, Sy, Sx, corner y, corner x].
-        yi = geom.y_idx[lo:hi].long()[:, :, None, :, None]
-        xi = geom.x_idx[lo:hi].long()[:, None, :, None, :]
-        wy = geom.y_w[lo:hi][:, :, None, :, None]
-        wx = geom.x_w[lo:hi][:, None, :, None, :]
-        rows = row0[:, None, None, None, None] + yi * W[:, None, None, None, None] + xi
+        rows, w = _corner_rows(geom, lo, hi, rois_per_image, sizes)
         vals = flat[rows.reshape(-1)].float().reshape(*rows.shape, C)
-        w = (wy * wx)[..., None]                              # [n,Sy,Sx,2,2,1]
-        samp = (vals * w).sum(dim=(3, 4))                     # [n, Sy, Sx, C]
+        samp = (vals * w[..., None]).sum(dim=(3, 4))          # [n, Sy, Sx, C]
         n = hi - lo
         binned = samp.reshape(n, s, g, s, g, C).mean(dim=(2, 4))
         out.append(binned.to(features[0].dtype))
     return torch.cat(out) if out else features[0].new_zeros(0, s, s, C)
+
+
+def _corner_rows(geom: RoIGeometry, lo: int, hi: int, rois_per_image: int,
+                 sizes: Sequence[Sequence[int]]):
+    """Rows of rois lo..hi-1's sample corners in the level-concatenated
+    [sum_l B*H_l*W_l, C] buffer, and their bilinear weights, both laid out
+    [n, Sy, Sx, corner y, corner x]. ``sizes`` [(B, H_l, W_l)] x 4."""
+    device = geom.level.device
+    base, acc = [], 0
+    for B_, H_, W_ in sizes:
+        base.append(acc)
+        acc += B_ * H_ * W_
+    base_t = torch.tensor(base, device=device)
+    hw_t = torch.tensor([H_ * W_ for _, H_, W_ in sizes], device=device)
+    w_t = torch.tensor([W_ for _, _, W_ in sizes], device=device)
+    lvl = geom.level[lo:hi].long()
+    img = torch.arange(lo, hi, device=device) // rois_per_image
+    row0 = base_t[lvl] + img * hw_t[lvl]                           # [n]
+    W = w_t[lvl]
+    yi = geom.y_idx[lo:hi].long()[:, :, None, :, None]
+    xi = geom.x_idx[lo:hi].long()[:, None, :, None, :]
+    wy = geom.y_w[lo:hi][:, :, None, :, None]
+    wx = geom.x_w[lo:hi][:, None, :, None, :]
+    rows = row0[:, None, None, None, None] + yi * W[:, None, None, None, None] + xi
+    return rows, wy * wx
+
+
+def roi_align_backward_from_geometry(dout: torch.Tensor, geom: RoIGeometry,
+                                     rois_per_image: int,
+                                     level_shapes: Sequence[Sequence[int]],
+                                     chunk: int = 256):
+    """Plain transpose of ``roi_align_from_geometry``: the cotangent
+    ``dout`` [N, s, s, C] (any float dtype) -> 4 float32 level gradients
+    [B, H_l, W_l, C]. Each bin's cotangent goes to the 4 corners of each of
+    its g x g samples with weight ``y_w * x_w / g**2``, accumulated with
+    ``index_add_`` in float32."""
+    N, s, _, C = dout.shape
+    g = geom.y_idx.shape[1] // s
+    B = N // rois_per_image
+    sizes = [(B, int(h), int(w)) for h, w in level_shapes]
+    flat = torch.zeros(sum(b * h * w for b, h, w in sizes), C,
+                       dtype=torch.float32, device=dout.device)
+    for lo in range(0, N, chunk):
+        hi = min(N, lo + chunk)
+        rows, w = _corner_rows(geom, lo, hi, rois_per_image, sizes)
+        n = hi - lo
+        d = dout[lo:hi].float() / (g * g)                    # [n, s, s, C]
+        # Every sample of bin (i, j) sees that bin's cotangent.
+        d = d[:, :, None, :, None, :].expand(n, s, g, s, g, C)
+        d = d.reshape(n, s * g, s * g, C)
+        vals = d[:, :, :, None, None, :] * w[..., None]   # [n,Sy,Sx,2,2,C]
+        flat.index_add_(0, rows.reshape(-1), vals.reshape(-1, C))
+    out, start = [], 0
+    for b, h, w in sizes:
+        out.append(flat[start:start + b * h * w].view(b, h, w, C))
+        start += b * h * w
+    return out
 
 
 def multiscale_roi_align(features: Sequence[torch.Tensor],

@@ -13,7 +13,13 @@ import pytest
 import torch
 
 from detectinblur_tpu_torch.ops import roi_align_cuda
-from detectinblur_tpu_torch.ops.roi_align import multiscale_roi_align
+from detectinblur_tpu_torch.ops.roi_align import (
+    multiscale_roi_align,
+    roi_align_backward_from_geometry,
+    roi_geometry,
+)
+
+SHAPES = ((64, 80), (32, 40), (16, 20), (8, 10))
 
 # Sliver, giant, sub-pixel and edge rois, a zeroed invalid slot and a box
 # past the image edge.
@@ -82,3 +88,76 @@ def test_roi_align_kernel_rejects_bad_inputs(rng, cuda):
     with pytest.raises(TypeError):
         roi_align_cuda.multiscale_roi_align_cuda(
             feats, torch.from_numpy(boxes).to(cuda))
+
+
+def _dout(rng, B, R, C, cuda, dt):
+    d = rng.standard_normal((B * R, 7, 7, C), dtype=np.float32)
+    d[::7] = 0.0    # rois with an all-zero cotangent: unsampled slots
+    return torch.from_numpy(d).to(cuda, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_roi_align_bwd_kernel_matches_plain(rng, cuda, dtype):
+    """The kernel's float32 sums against the plain index_add_ backward on
+    the same cotangent (read in its dtype) and geometry: within 1e-5 of the
+    largest gradient. Both form the same products; only the order of the
+    float32 sums differs, and atomics change it from run to run."""
+    dt = getattr(torch, dtype)
+    _, boxes = _inputs(rng)
+    B, R = boxes.shape[:2]
+    geom = roi_geometry(torch.from_numpy(boxes).reshape(-1, 4).to(cuda),
+                        SHAPES)
+    dout = _dout(rng, B, R, 256, cuda, dt)
+    before = roi_align_cuda.roi_align_bwd.launches
+    got = roi_align_cuda.roi_align_bwd(dout, geom, R, SHAPES)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.roi_align_bwd.launches == before + 1
+    ref = roi_align_backward_from_geometry(dout, geom, R, SHAPES)
+    for g, r, (h, w) in zip(got, ref, SHAPES):
+        assert g.dtype == torch.float32 and g.shape == (B, h, w, 256)
+        scale = r.abs().max().item()
+        assert scale > 0
+        assert (g - r).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_autograd_function_gradient_card_vs_cpu(rng, cuda):
+    """The features' gradient through multiscale_roi_align_cuda on the card
+    (both kernels) against the CPU's (both plain versions): float32,
+    within 1e-5 of the largest gradient."""
+    feats, boxes = _inputs(rng)
+    w = rng.standard_normal((2, 300, 7, 7, 256), dtype=np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        fs = [torch.from_numpy(f).to(dev).requires_grad_() for f in feats]
+        before = (roi_align_cuda.roi_align_fwd.launches,
+                  roi_align_cuda.roi_align_bwd.launches)
+        out = roi_align_cuda.multiscale_roi_align_cuda(
+            fs, torch.from_numpy(boxes).to(dev))
+        (out * torch.from_numpy(w).to(dev)).sum().backward()
+        launched = (roi_align_cuda.roi_align_fwd.launches - before[0],
+                    roi_align_cuda.roi_align_bwd.launches - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[str(dev)] = [f.grad.cpu() for f in fs]
+    for g, r in zip(grads["cuda"], grads["cpu"]):
+        assert (g - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_roi_align_bwd_kernel_rejects_bad_inputs(rng, cuda):
+    _, boxes = _inputs(rng, R=4)
+    geom = roi_geometry(torch.from_numpy(boxes).reshape(-1, 4).to(cuda),
+                        SHAPES)
+    with pytest.raises(ValueError):   # not a whole 16-byte f32 vector
+        roi_align_cuda.roi_align_bwd(_dout(rng, 2, 4, 6, cuda, torch.float32),
+                                     geom, 4, SHAPES)
+    with pytest.raises(TypeError):
+        roi_align_cuda.roi_align_bwd(_dout(rng, 2, 4, 16, cuda, torch.half),
+                                     geom, 4, SHAPES)
+    strided = _dout(rng, 2, 4, 32, cuda, torch.float32)[..., ::2]
+    with pytest.raises(ValueError):
+        roi_align_cuda.roi_align_bwd(strided, geom, 4, SHAPES)
+    with pytest.raises(ValueError):   # 8 rois are not whole images of 3
+        roi_align_cuda.roi_align_bwd(_dout(rng, 2, 4, 16, cuda, torch.float32),
+                                     geom, 3, SHAPES)

@@ -1,8 +1,9 @@
 """The port's RoIAlign (shared geometry + plain torch version + CUDA
-wrapper) held against the JAX XLA path and the Pallas kernel run in
-interpret mode (the kernel itself is held on the card by
-test_torch_port_cuda.py)."""
+wrapper), forward and backward, held against the JAX XLA path and the
+Pallas kernels run in interpret mode (the CUDA kernels themselves are held
+on the card by test_torch_port_cuda.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +17,9 @@ from detectinblur_tpu_torch.ops import roi_align_cuda
 from detectinblur_tpu_torch.ops.roi_align import (
     assign_levels,
     multiscale_roi_align,
+    roi_align_backward_from_geometry,
+    roi_align_from_geometry,
+    roi_geometry,
 )
 
 # Sliver, giant, sub-pixel and edge rois (tests/test_roi_align_pallas.py:51-58)
@@ -105,3 +109,139 @@ def test_wrapper_rejects_other_devices(rng):
         roi_align_cuda.multiscale_roi_align_cuda(
             feats, torch.empty(1, 3, 4, device="meta"))
 
+
+# -------------------------------------------------------------- backward
+SHAPES = ((64, 80), (32, 40), (16, 20), (8, 10))
+
+
+def _plain_grads(boxes, dout):
+    """The plain backward from the boxes' geometry: dout [B, R, 7, 7, C]."""
+    B, R = boxes.shape[:2]
+    geom = roi_geometry(torch.from_numpy(boxes).reshape(-1, 4), SHAPES)
+    return roi_align_backward_from_geometry(
+        torch.from_numpy(dout).reshape(B * R, 7, 7, -1), geom, R, SHAPES)
+
+
+def _bwd_boxes(rng, B, R):
+    """Random rois plus the cases the TPU backward test singles out:
+    overlapping rois in one image, a wide sliver across the image, a tiny
+    roi; the EDGE_ROIS ride along."""
+    b = _boxes(rng, B, R)
+    b[0, 11] = b[0, 10] + 4.0
+    b[0, 12] = [0.0, 60.0, 318.0, 70.0]
+    b[1, 13] = [40.0, 40.0, 52.0, 52.0]
+    return b
+
+
+def _dout(rng, B, R, C=8):
+    d = rng.random((B, R, 7, 7, C), dtype=np.float32)
+    d[0, 4] = 0.0    # exactly-zero cotangents: unsampled slots
+    d[1, 0] = 0.0
+    return d
+
+
+def test_plain_backward_matches_autograd_of_plain_forward(rng):
+    """The plain backward is the transpose of the plain forward: torch
+    autograd through the gather form gives the same gradients, float32 sums
+    in another order (1e-5 of the largest gradient)."""
+    B, R = 2, 24
+    feats = [torch.from_numpy(f).requires_grad_() for f in _feats(rng, B)]
+    boxes = _bwd_boxes(rng, B, R)
+    dout = _dout(rng, B, R)
+    geom = roi_geometry(torch.from_numpy(boxes).reshape(-1, 4), SHAPES)
+    out = roi_align_from_geometry(feats, geom, R)
+    out.backward(torch.from_numpy(dout).reshape(B * R, 7, 7, -1))
+    for f, g in zip(feats, _plain_grads(boxes, dout)):
+        assert g.dtype == torch.float32 and g.shape == f.shape
+        scale = f.grad.abs().max().item()
+        torch.testing.assert_close(g, f.grad, rtol=0, atol=1e-5 * scale)
+
+
+def test_plain_backward_matches_jax_vjp(rng):
+    """Against ``jax.vjp`` of the JAX XLA ``multiscale_roi_align``, per
+    image: 3e-5 abs + 1e-4 rel, the tolerance the JAX package holds its
+    own backward kernel to."""
+    B, R = 2, 24
+    feats = _feats(rng, B)
+    boxes = _bwd_boxes(rng, B, R)
+    dout = _dout(rng, B, R)
+    ours = _plain_grads(boxes, dout)
+    for b in range(B):
+        _, vjp = jax.vjp(lambda fs: jax_roi_align(fs, boxes[b]),
+                         tuple(jnp.asarray(f[b]) for f in feats))
+        for g, r in zip(ours, vjp(jnp.asarray(dout[b]))[0]):
+            np.testing.assert_allclose(g[b].numpy(), np.asarray(r),
+                                       atol=3e-5, rtol=1e-4)
+
+
+def test_plain_backward_matches_pallas_interpret(rng, monkeypatch):
+    """Against the TPU backward kernel (window read-modify-write, plus its
+    oversized take-VJP tier for the wide sliver), interpreted on the CPU.
+    ``kernel_backend`` is forced as tests/test_roi_align_pallas.py does, or
+    the wrapper would take its CPU path: 3e-5 abs + 1e-4 rel."""
+    import detectinblur_tpu.ops.roi_align_pallas as rap
+
+    monkeypatch.setattr(rap, "kernel_backend", lambda: True)
+    monkeypatch.setattr(rap, "_CP_CACHE", {})
+    B, R = 2, 6
+    feats = _feats(rng, B)
+    boxes = np.zeros((B, R, 4), np.float32)
+    boxes[..., 0] = rng.uniform(0, 180, (B, R))
+    boxes[..., 1] = rng.uniform(0, 140, (B, R))
+    boxes[..., 2] = boxes[..., 0] + rng.uniform(8, 90, (B, R))
+    boxes[..., 3] = boxes[..., 1] + rng.uniform(8, 90, (B, R))
+    boxes[0, 1] = boxes[0, 0] + 4.0          # overlapping rois
+    boxes[0, 2] = [0.0, 60.0, 318.0, 70.0]   # wide sliver (oversized tier)
+    boxes[1, 3] = [40.0, 40.0, 52.0, 52.0]   # small window class
+    dout = _dout(rng, B, R)
+
+    def loss(fs):
+        out = rap.multiscale_roi_align_fused(tuple(fs), jnp.asarray(boxes),
+                                             7, 2, 2, 16, 24)
+        return jnp.sum(out * dout)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(loss)([jnp.asarray(f) for f in feats])
+    for g, r in zip(_plain_grads(boxes, dout), ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=3e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_on_cpu_differentiates_through_plain_backward(rng, dtype):
+    """On CPU tensors the autograd Function runs the plain versions both
+    ways and launches nothing: the features' gradient is the plain
+    backward cast to their dtype; the boxes get none."""
+    B, R = 2, 16
+    feats = [torch.from_numpy(f).to(dtype).requires_grad_()
+             for f in _feats(rng, B)]
+    boxes = torch.from_numpy(_bwd_boxes(rng, B, R)).requires_grad_()
+    dout = _dout(rng, B, R)
+    before = (roi_align_cuda.roi_align_fwd.launches,
+              roi_align_cuda.roi_align_bwd.launches)
+    out = roi_align_cuda.multiscale_roi_align_cuda(feats, boxes)
+    out.backward(torch.from_numpy(dout).to(dtype))
+    assert (roi_align_cuda.roi_align_fwd.launches,
+            roi_align_cuda.roi_align_bwd.launches) == before
+    assert boxes.grad is None
+    geom = roi_geometry(boxes.detach().reshape(-1, 4), SHAPES)
+    ref = roi_align_backward_from_geometry(
+        torch.from_numpy(dout).to(dtype).reshape(B * R, 7, 7, -1), geom, R,
+        SHAPES)
+    for f, r in zip(feats, ref):
+        assert f.grad.dtype == dtype
+        torch.testing.assert_close(f.grad, r.to(dtype), rtol=0, atol=0)
+
+
+def test_bwd_wrapper_on_cpu_runs_plain_version_and_counts_nothing(rng):
+    B, R = 1, 16
+    boxes = _bwd_boxes(rng, 2, R)[:B]
+    dout = _dout(rng, 2, R)[:B]
+    geom = roi_geometry(torch.from_numpy(boxes).reshape(-1, 4), SHAPES)
+    before = roi_align_cuda.roi_align_bwd.launches
+    got = roi_align_cuda.roi_align_bwd(
+        torch.from_numpy(dout).reshape(B * R, 7, 7, -1), geom, R, SHAPES,
+        torch.bfloat16)
+    assert roi_align_cuda.roi_align_bwd.launches == before
+    for g, r in zip(got, _plain_grads(boxes, dout)):
+        torch.testing.assert_close(g, r.bfloat16(), rtol=0, atol=0)
