@@ -25,7 +25,14 @@ Phases (any failure exits non-zero and prints no result):
      launched both kernels, check the losses and which parameters moved,
      time it (img/s, ms per stage, peak memory).
   6. Time each kernel on its path's own inputs beside its plain version
-     and its bound.
+     and its bound (the forward on the serving and the train rois), and
+     count the unique cells each roi touches: the backward issues one
+     float2 reduction per touched cell and pair of channels, where a
+     reduction per sample corner would be 784 per roi and channel; the
+     forward gathers 784 corner cells per roi, and a separable form would
+     read only the touched ones. Also count the rois whose samples span at
+     most 10 rows, the only ones on which a separable row walk beat the
+     direct gather on the card.
   7. Hold the card's predict and the card's loss and gradients
      (``highest`` precision, kernels) against the port's CPU (plain
      versions) on a small input.
@@ -215,6 +222,30 @@ def _touched(g, R, shapes, active=None):
     return torch.unique(idx[need]).numel(), int(need.sum())
 
 
+def _axis_sizes(g):
+    """Per roi, the unique rows and the unique columns that a sample
+    corner reaches with a nonzero weight: the backward's |Ys| and |Xs|."""
+    def unique(idx, w):
+        v = torch.where(w != 0, idx, torch.full_like(idx, -1))
+        v = v.reshape(len(v), -1).sort(dim=1).values
+        new = (v[:, 1:] != v[:, :-1]) & (v[:, 1:] >= 0)
+        return new.sum(1) + (v[:, 0] >= 0)
+    return unique(g.y_idx, g.y_w), unique(g.x_idx, g.x_w)
+
+
+def separable_counts(g, active=None):
+    """(rois, mean and max unique touched cells per roi, their sum, max
+    |Ys| and |Xs|) over the ``active`` rois of geometry table ``g``."""
+    ny, nx = _axis_sizes(g)
+    cells = ny * nx
+    if active is not None:
+        cells, ny, nx = cells[active], ny[active], nx[active]
+    n = len(cells)
+    return (n, cells.float().mean().item() if n else 0.0,
+            int(cells.max()) if n else 0, int(cells.sum()),
+            int(ny.max()) if n else 0, int(nx.max()) if n else 0)
+
+
 def _bound(nbytes, ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -268,7 +299,8 @@ def _train_batch(gen):
 
 def run_train(gen):
     """The training step with bench_train.py's protocol. Returns (launches
-    per kernel in the counted step, the step's RoIAlign backward inputs)."""
+    per kernel in the counted step, the levels the step's RoIAlign forward
+    read, the step's RoIAlign backward inputs)."""
     from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
     from detectinblur_tpu_torch.models.faster_rcnn import (
         FasterRCNN,
@@ -294,12 +326,17 @@ def run_train(gen):
                            expand_target_boxes=True)
     batch = _train_batch(gen)
 
-    # Warm-up; the second step records what the RoIAlign Function's
-    # backward hands roi_align_bwd (its cotangent and saved geometry).
+    # Warm-up; the second step records what the RoIAlign Function hands
+    # roi_align_fwd (the levels) and roi_align_bwd (its cotangent and the
+    # geometry saved by the forward).
     state, _ = step(state, batch, generator=gen)
     fn = roi_align_cuda._MultiscaleRoIAlign
-    backward = fn.backward
-    captured = []
+    forward, backward = fn.forward, fn.backward
+    levels, captured = [], []
+
+    def capture_fwd(ctx, boxes, *features):
+        levels.append([f.detach() for f in features])
+        return forward(ctx, boxes, *features)
 
     def capture(ctx, dout):
         Bn, R = dout.shape[:2]
@@ -308,11 +345,11 @@ def run_train(gen):
                          ctx.level_shapes, ctx.feature_dtype))
         return backward(ctx, dout)
 
-    fn.backward = staticmethod(capture)
+    fn.forward, fn.backward = staticmethod(capture_fwd), staticmethod(capture)
     try:
         state, _ = step(state, batch, generator=gen)
     finally:
-        fn.backward = staticmethod(backward)
+        fn.forward, fn.backward = staticmethod(forward), staticmethod(backward)
     torch.cuda.synchronize()
 
     # The main path, counted.
@@ -382,7 +419,7 @@ def run_train(gen):
     summary = {"img_s": img_s, "window_img_s": rates, "stage_ms": acc,
                "peak_mem_gib": peak}
     print("train " + json.dumps(summary))
-    return launches, captured[0]
+    return launches, levels[0], captured[0]
 
 
 def time_bwd_kernel(captured, launches, errs):
@@ -404,7 +441,16 @@ def time_bwd_kernel(captured, launches, errs):
     plain_ms = _cuda_ms(plain, 3)
     bound_ms, bound_by, nbytes, ops, cells = roi_align_bwd_bound(
         dout, geom, R, shapes, out_dtype)
-    active = int(dout.reshape(dout.shape[0], -1).ne(0).any(dim=1).sum())
+    mask = dout.reshape(dout.shape[0], -1).ne(0).any(dim=1)
+    active = int(mask.sum())
+    n, mean, top, total, my, mx = separable_counts(geom, mask)
+    C_ = dout.shape[-1]
+    print(f"roi_align_bwd separable form on the train step's {n} active rois,"
+          f" by the geometry: unique touched cells per roi mean {mean:.2f}, "
+          f"max {top} (|Ys| <= {my}, |Xs| <= {mx}), {total} in all, so "
+          f"{total * C_ // 2} float2 REDs at one per touched cell and pair of "
+          f"channels, against {784 * C_ * n} scalar REDs at 784 per roi and "
+          f"channel")
     print(f"roi_align_bwd on the train step's cotangent ({tuple(dout.shape)} "
           f"{str(dout.dtype).split('.')[-1]}, {active} rois with a nonzero "
           f"cotangent, grads in {str(out_dtype).split('.')[-1]}): {ms:.4f} "
@@ -519,35 +565,47 @@ def run_slice(gen):
     return bucket, launches, [f for f in feats[:4]], rois
 
 
-def time_kernels(feats, rois, launches, errs):
-    """The kernel alone (from the shared geometry table) vs the plain
-    version from the same table, on the main path's features and rois."""
-    from detectinblur_tpu_torch.ops.roi_align import (
-        roi_align_from_geometry,
-        roi_geometry,
-    )
+def time_fwd_kernel(feats, geom, R, where):
+    """roi_align_fwd alone (from the geometry table ``geom``) vs the plain
+    version from the same table, on levels ``feats`` in their dtype and in
+    float32. Returns (ms, plain ms, bound ms, bound_by) in their dtype."""
+    from detectinblur_tpu_torch.ops.roi_align import roi_align_from_geometry
     from detectinblur_tpu_torch.ops.roi_align_cuda import roi_align_fwd
+
+    result = None
+    for fs in (feats, [f.float() for f in feats]):
+        with torch.inference_mode():
+            ms = _cuda_ms(lambda: roi_align_fwd(fs, geom, R), 20)
+            plain_ms = _cuda_ms(lambda: roi_align_from_geometry(fs, geom, R), 3)
+        bound_ms, bound_by, nbytes, ops, cells = roi_align_bound(fs, geom, R)
+        print(f"roi_align_fwd {str(fs[0].dtype).split('.')[-1]} on {where}: "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({nbytes} bytes, {cells} unique feature cells, {ops} "
+              f"operations)")
+        result = result or (ms, plain_ms, bound_ms, bound_by)
+    n, mean, top, total, my, mx = separable_counts(geom)
+    span = geom.y_idx[:, -1, 1] - geom.y_idx[:, 0, 0] + 1
+    print(f"roi_align_fwd on {where}: unique touched cells per roi mean "
+          f"{mean:.2f}, max {top} (|Ys| <= {my}, |Xs| <= {mx}), {total} in "
+          f"all, against {784 * n} corner reads of the direct gather (784 "
+          f"per roi); samples span at most 10 rows on "
+          f"{int((span <= 10).sum())} of {n} rois")
+    return result
+
+
+def time_kernels(feats, rois, launches, errs):
+    """The forward kernel on the main path's features and rois."""
+    from detectinblur_tpu_torch.ops.roi_align import roi_geometry
 
     R = rois.shape[1]
     shapes = [f.shape[1:3] for f in feats]
-    f32 = [f.float() for f in feats]
     with torch.inference_mode():
         geom_ms = _cuda_ms(lambda: roi_geometry(rois.reshape(-1, 4), shapes), 20)
         geom = roi_geometry(rois.reshape(-1, 4), shapes)
-        ms = _cuda_ms(lambda: roi_align_fwd(feats, geom, R), 20)
-        plain_ms = _cuda_ms(lambda: roi_align_from_geometry(feats, geom, R), 3)
-        ms32 = _cuda_ms(lambda: roi_align_fwd(f32, geom, R), 20)
-        plain32 = _cuda_ms(lambda: roi_align_from_geometry(f32, geom, R), 3)
-    bound_ms, bound_by, nbytes, ops, cells = roi_align_bound(feats, geom, R)
-    bound32, _, bytes32, _, _ = roi_align_bound(f32, geom, R)
     print(f"roi_align geometry (torch, shared by both versions): "
           f"{geom_ms:.4f} ms")
-    print(f"roi_align_fwd bfloat16 on the main path's rois: {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes"
-          f", {cells} unique feature cells, {ops} operations)")
-    print(f"roi_align_fwd float32 on the main path's rois: {ms32:.4f} ms, "
-          f"plain {plain32:.4f} ms, bound {bound32:.4f} ms "
-          f"({bytes32} bytes)")
+    ms, plain_ms, bound_ms, bound_by = time_fwd_kernel(
+        feats, geom, R, "the main path's rois")
     return [{
         "name": "roi_align_fwd",
         "route": "cuda",
@@ -725,10 +783,11 @@ def main():
     _, launches, feats, rois = run_slice(cuda_gen)
     kernels = time_kernels(feats, rois, launches, errs)
     del feats, rois
-    train_launches, captured = run_train(cuda_gen)
+    train_launches, levels, captured = run_train(cuda_gen)
+    time_fwd_kernel(levels, captured[1], captured[2], "the train step's rois")
     kernels.append(time_bwd_kernel(captured,
                                    train_launches["roi_align_bwd"], bwd_errs))
-    del captured
+    del levels, captured
     check_against_cpu()
     check_train_against_cpu()
 

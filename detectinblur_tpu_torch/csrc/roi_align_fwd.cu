@@ -8,25 +8,37 @@
 //
 // The level and every sample's corner indices and weights come in
 // precomputed, from ops/roi_align.py::roi_geometry, the same table the
-// plain torch version reads; the kernel only gathers and sums. Out-of-range
-// samples arrive with zero weights.
+// plain torch version reads. Out-of-range samples arrive with zero weights.
 //
-// What bounds it on this card: bytes. Per output element it does 16
-// multiply-adds (4 samples x 4 corners) against 16 reads that hit the
-// roi's corner footprint, so arithmetic is far below the card's rate. At
-// the serving shapes (8 images x 1000 rois, C = 256, bucket 832x1088) the
-// output alone is 8000 x 49 x 256 = 100,352,000 elements: 200.7 MB in
-// bf16, 401.4 MB in f32, i.e. 59.9 us and 119.8 us at 3.35 TB/s. The
-// unique feature cells the rois' corners touch come on top of that (the
-// smoke script counts them from its own inputs and reports the bound).
+// What bounds it on this card: bytes. At the serving shapes (8 images x
+// 1000 rois, C = 256, bucket 832x1088) the output alone is 8000 x 49 x 256
+// = 100,352,000 elements: 200.7 MB in bf16, 401.4 MB in f32, i.e. 59.9 us
+// and 119.8 us at 3.35 TB/s. The unique feature cells the rois' corners
+// touch come on top of that (the smoke script counts them from its own
+// inputs and reports the bound). What sets its time is the latency of the
+// corner fetches in flight, most of which hit L1.
 //
-// Design: one block per roi, threadIdx.y = bin row (7), threadIdx.x runs
-// over the channels with one 16-byte vector per thread (4 f32 or 8 bf16),
-// so the 256-channel corner reads of a warp are coalesced: channels-last
-// puts a cell's channels in one contiguous run. Sums are in f32; the output
-// is written once, in the features' dtype. Nothing of the TPU design (window
-// DMA, selection-matrix matmuls, oversized-roi tiers) carries over: corners
-// are read straight from device memory, so there is no window to overflow.
+// Design: one block per roi and 512-byte slice of each cell's channels
+// (256 bf16, 128 f32): 7 warps, warp j for bin column j, a lane for each
+// 16-byte vector. Warp j loads its bin column's 4 corner columns and
+// weights once, then for each bin row i gathers the bin's 4 x 4 corner
+// cells straight from the level (read-only path, 8 loads in flight),
+// sums them in float32 and writes out[i, j] once, in the features' dtype.
+// The 7 warps of a block read overlapping cells, which L1 serves. The
+// launch bound asks for 4 blocks (28 warps) an SM, which holds ptxas to 72
+// registers with no spill; more blocks in flight hide more fetch latency.
+//
+// Not separable. The separable form out = Ay F[Ys, Xs] Ax^T, which the
+// backward uses (roi_align_bwd.cu), reads each unique cell once per roi,
+// but a block must then walk the roi's up to 28 unique rows in order, a
+// barrier and a round trip to L2 per row. Measured on the card, that walk
+// lost to this gather on the serving rois, and a kernel holding both forms
+// lost on them too: the walk's shared-memory ring and registers cut the
+// blocks in flight for every roi. Numbers in PERF.md.
+//
+// No tiers: corners are read straight from device memory, so no window
+// can overflow. The TPU kernel's oversized-roi tiers exist only because a
+// DMA window has a fixed size.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,6 +48,7 @@ namespace {
 
 constexpr int kOut = 7;       // bins per axis
 constexpr int kSamples = 14;  // kOut x sampling ratio 2
+constexpr int kVecs = 32;     // 16-byte vectors of a block's slice: 512 bytes of a cell
 
 struct Levels {
   const void* ptr[4];
@@ -43,18 +56,18 @@ struct Levels {
   int w[4];
 };
 
+// 16 bytes of channels, 4 f32 or 8 bf16, as raw bits.
 template <typename T>
 struct Vec;
 
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
-  __device__ static void load(const float* p, float (&v)[N]) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
+  __device__ static void fma(float (&acc)[N], uint4 v, float w) {
+    acc[0] += w * __uint_as_float(v.x);
+    acc[1] += w * __uint_as_float(v.y);
+    acc[2] += w * __uint_as_float(v.z);
+    acc[3] += w * __uint_as_float(v.w);
   }
   __device__ static void store(float* p, const float (&v)[N]) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -64,90 +77,87 @@ struct Vec<float> {
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float (&v)[N]) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+  __device__ static void fma(float (&acc)[N], uint4 v, float w) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      acc[2 * k] += w * f.x;
+      acc[2 * k + 1] += w * f.y;
     }
   }
   __device__ static void store(__nv_bfloat16* p, const float (&v)[N]) {
     uint4 q;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
     *reinterpret_cast<uint4*>(p) = q;
   }
 };
 
-// At most kMaxThreadsX x kOut threads a block: the bound lets ptxas give
-// each thread up to 128 registers, so the 16 corner loads of a bin stay in
-// flight without spilling (a 1024-thread bound capped it at 64 and spilled).
-constexpr int kMaxThreadsX = 64;
-
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreadsX * kOut) roi_align_fwd_kernel(
+__global__ void __launch_bounds__(kVecs * kOut, 4) roi_align_fwd_kernel(
     Levels lv, const int* __restrict__ level, const int2* __restrict__ y_idx,
     const float2* __restrict__ y_w, const int2* __restrict__ x_idx,
     const float2* __restrict__ x_w, T* __restrict__ out, int rois_per_image,
     int channels) {
   constexpr int V = Vec<T>::N;
   const int n = blockIdx.x;
-  const int py = threadIdx.y;
+  const int j = threadIdx.y;  // bin column
+  const int c = blockIdx.y * kVecs * V + threadIdx.x * V;
+  if (c >= channels) return;
   const int l = level[n];
   const int W = lv.w[l];
   const size_t img_cells = static_cast<size_t>(lv.h[l]) * W;
-  const T* base = static_cast<const T*>(lv.ptr[l]) +
-                  static_cast<size_t>(n / rois_per_image) * img_cells * channels;
+  const T* fc = static_cast<const T*>(lv.ptr[l]) +
+                static_cast<size_t>(n / rois_per_image) * img_cells * channels + c;
+  const size_t row_stride = static_cast<size_t>(W) * channels;
+  const int2* yi = y_idx + n * kSamples;
+  const float2* yw = y_w + n * kSamples;
 
-  int2 yi[2];
-  float2 yw[2];
+  // Bin column j's 4 corner columns and their weights, with the 1/4 of
+  // the mean over the bin's 2 x 2 samples.
+  int cx[4];
+  float wx[4];
 #pragma unroll
-  for (int iy = 0; iy < 2; ++iy) {
-    yi[iy] = y_idx[n * kSamples + 2 * py + iy];
-    yw[iy] = y_w[n * kSamples + 2 * py + iy];
+  for (int sp = 0; sp < 2; ++sp) {
+    const int2 c2 = x_idx[n * kSamples + 2 * j + sp];
+    const float2 w2 = x_w[n * kSamples + 2 * j + sp];
+    cx[2 * sp] = c2.x; cx[2 * sp + 1] = c2.y;
+    wx[2 * sp] = 0.25f * w2.x; wx[2 * sp + 1] = 0.25f * w2.y;
   }
-  T* out_row = out + (static_cast<size_t>(n) * kOut + py) * kOut * channels;
-
-  for (int c = threadIdx.x * V; c < channels; c += blockDim.x * V) {
-    for (int px = 0; px < kOut; ++px) {
-      float acc[V];
+  T* out_col = out + (static_cast<size_t>(n) * kOut * kOut + j) * channels + c;
+#pragma unroll 1
+  for (int i = 0; i < kOut; ++i) {
+    float acc[V];
 #pragma unroll
-      for (int k = 0; k < V; ++k) acc[k] = 0.f;
+    for (int k = 0; k < V; ++k) acc[k] = 0.f;
 #pragma unroll
-      for (int iy = 0; iy < 2; ++iy) {
-        const T* row_lo = base + static_cast<size_t>(yi[iy].x) * W * channels + c;
-        const T* row_hi = base + static_cast<size_t>(yi[iy].y) * W * channels + c;
+    for (int sp = 0; sp < 2; ++sp) {
+      const int2 r2 = yi[2 * i + sp];
+      const float2 w2 = yw[2 * i + sp];
+      const T* lo = fc + r2.x * row_stride;
+      const T* hi = fc + r2.y * row_stride;
+      uint4 v[2][4];
 #pragma unroll
-        for (int ix = 0; ix < 2; ++ix) {
-          const int2 xi = x_idx[n * kSamples + 2 * px + ix];
-          const float2 xw = x_w[n * kSamples + 2 * px + ix];
-          const float w00 = yw[iy].x * xw.x, w01 = yw[iy].x * xw.y;
-          const float w10 = yw[iy].y * xw.x, w11 = yw[iy].y * xw.y;
-          float v00[V], v01[V], v10[V], v11[V];
-          Vec<T>::load(row_lo + static_cast<size_t>(xi.x) * channels, v00);
-          Vec<T>::load(row_lo + static_cast<size_t>(xi.y) * channels, v01);
-          Vec<T>::load(row_hi + static_cast<size_t>(xi.x) * channels, v10);
-          Vec<T>::load(row_hi + static_cast<size_t>(xi.y) * channels, v11);
-#pragma unroll
-          for (int k = 0; k < V; ++k)
-            acc[k] += v00[k] * w00 + v01[k] * w01 + v10[k] * w10 + v11[k] * w11;
-        }
+      for (int b = 0; b < 4; ++b) {
+        v[0][b] = __ldg(reinterpret_cast<const uint4*>(lo + static_cast<size_t>(cx[b]) * channels));
+        v[1][b] = __ldg(reinterpret_cast<const uint4*>(hi + static_cast<size_t>(cx[b]) * channels));
       }
 #pragma unroll
-      for (int k = 0; k < V; ++k) acc[k] *= 0.25f;
-      Vec<T>::store(out_row + static_cast<size_t>(px) * channels + c, acc);
+      for (int b = 0; b < 4; ++b) {
+        Vec<T>::fma(acc, v[0][b], w2.x * wx[b]);
+        Vec<T>::fma(acc, v[1][b], w2.y * wx[b]);
+      }
     }
+    Vec<T>::store(out_col + static_cast<size_t>(i) * kOut * channels, acc);
   }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Features are 4 contiguous NHWC levels
-// sharing B and C; the geometry tables are [n_rois, 14, 2]; out is
+// sharing B and C (C a multiple of 16 bytes); the geometry tables are [n_rois, 14, 2]; out is
 // [n_rois, 7, 7, C]. Launches on `stream` and returns cudaGetLastError().
 extern "C" int roi_align_fwd(int dtype, const void* f0, const void* f1,
                              const void* f2, const void* f3, int h0, int w0,
@@ -157,12 +167,13 @@ extern "C" int roi_align_fwd(int dtype, const void* f0, const void* f1,
                              const void* x_w, void* out, int n_rois,
                              int rois_per_image, int channels, void* stream) {
   if (n_rois == 0) return 0;
-  const Levels lv = {{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
   const int vec = dtype == 0 ? Vec<float>::N : Vec<__nv_bfloat16>::N;
-  int tx = channels / vec;
-  if (tx > kMaxThreadsX) tx = kMaxThreadsX;
-  const dim3 block(tx, kOut);
-  const dim3 grid(n_rois);
+  if (channels % vec) return static_cast<int>(cudaErrorInvalidValue);
+  const Levels lv = {{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
+  // One block per roi and slice of 512 bytes of each cell's channels.
+  const int slice = kVecs * vec;
+  const dim3 block(kVecs, kOut);
+  const dim3 grid(n_rois, (channels + slice - 1) / slice);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lvl = static_cast<const int*>(level);
   const int2* yi = static_cast<const int2*>(y_idx);

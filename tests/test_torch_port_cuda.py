@@ -29,6 +29,14 @@ EDGE_ROIS = np.array([[0, 0, 250, 310], [10, 10, 60, 60], [5, 5, 1200, 1200],
                       [200, 5, 206, 230], [0, 0, 0, 0],
                       [290, 230, 400, 330]], np.float32)
 
+# Rois that stress the kernels' separable form: a tall sliver whose 14
+# samples reach 28 distinct rows, footprints larger than any fixed window
+# (the whole image, a full-width sliver), a border roi whose samples have
+# low == high, and 40 one-pixel rois stacked on one cell (atomic contention).
+STRESS_ROIS = np.array([[100, 2, 104, 252], [0, 0, 319, 255],
+                        [0, 100, 320, 104], [310, 250, 322, 258]]
+                       + [[50, 50, 51, 51]] * 40, np.float32)
+
 
 @pytest.fixture
 def cuda():
@@ -45,8 +53,9 @@ def _inputs(rng, B=2, R=300, C=256):
     b[..., 1] = rng.uniform(-10, 240, (B, R))
     b[..., 2] = b[..., 0] + rng.uniform(0.5, 200, (B, R))
     b[..., 3] = b[..., 1] + rng.uniform(0.5, 200, (B, R))
-    n = min(R, len(EDGE_ROIS))
-    b[:, :n] = EDGE_ROIS[:n]
+    special = np.concatenate([EDGE_ROIS, STRESS_ROIS])
+    n = min(R, len(special))
+    b[:, :n] = special[:n]
     return feats, b
 
 
@@ -161,3 +170,22 @@ def test_roi_align_bwd_kernel_rejects_bad_inputs(rng, cuda):
     with pytest.raises(ValueError):   # 8 rois are not whole images of 3
         roi_align_cuda.roi_align_bwd(_dout(rng, 2, 4, 16, cuda, torch.float32),
                                      geom, 3, SHAPES)
+
+
+def test_stress_rois_reach_the_separable_limits():
+    """The stress rois do what they are there for (no card needed): the
+    sliver's samples reach 28 distinct rows, the whole-image roi covers
+    every row and column of its level, the border roi has samples with
+    low == high, and the stacked rois share one cell."""
+    geom = roi_geometry(torch.from_numpy(STRESS_ROIS), SHAPES)
+
+    def unique(idx, w, n):
+        return len(torch.unique(idx[n][w[n] != 0]))
+
+    assert unique(geom.y_idx, geom.y_w, 0) == 28
+    h, w = SHAPES[int(geom.level[1])]
+    assert (unique(geom.y_idx, geom.y_w, 1), unique(geom.x_idx, geom.x_w, 1)) == (h, w)
+    assert bool(((geom.y_idx[3, :, 0] == geom.y_idx[3, :, 1])
+                 & (geom.y_w[3, :, 0] != 0)).any())
+    stacked = torch.stack([geom.y_idx[4:], geom.x_idx[4:]])
+    assert bool((stacked == stacked[:, :1]).all())

@@ -245,3 +245,112 @@ def test_bwd_wrapper_on_cpu_runs_plain_version_and_counts_nothing(rng):
     assert roi_align_cuda.roi_align_bwd.launches == before
     for g, r in zip(got, _plain_grads(boxes, dout)):
         torch.testing.assert_close(g, r.bfloat16(), rtol=0, atol=0)
+
+
+# ------------------------------------------------------------ the separable form
+def _separable_axis(idx, w):
+    """One axis of one roi as the CUDA backward builds it
+    (``csrc/roi_align_bwd.cu``): the sorted unique rows (columns) that a
+    sample corner reaches with a nonzero weight, and A [7, n] with
+    A[i, r] = 1/2 * the weights of bin i's corners that land on row r."""
+    i, wt = idx.reshape(-1).long(), w.reshape(-1)
+    keep = wt != 0
+    uniq = torch.unique(i[keep])
+    a = torch.zeros(7, len(uniq))
+    a.index_put_((torch.arange(i.numel())[keep] // 4,
+                  torch.searchsorted(uniq, i[keep])), 0.5 * wt[keep],
+                 accumulate=True)
+    return uniq, a
+
+
+def _separable(feats, geom, R, dout):
+    """Per roi, the separable sandwiches: out = Ay F[Ys, Xs] Ax^T and the
+    level gradients G = Ay^T dout Ax added once into each cell of Ys x Xs
+    (the CUDA backward's algebra). Returns (out [N, 7, 7, C], 4 level
+    gradients, [(|Ys|, |Xs|)] per roi)."""
+    N, C = geom.level.shape[0], feats[0].shape[-1]
+    out = torch.zeros(N, 7, 7, C)
+    grads = [torch.zeros_like(f) for f in feats]
+    sizes = []
+    for n in range(N):
+        lvl, b = int(geom.level[n]), n // R
+        ys, ay = _separable_axis(geom.y_idx[n], geom.y_w[n])
+        xs, ax = _separable_axis(geom.x_idx[n], geom.x_w[n])
+        sizes.append((len(ys), len(xs)))
+        cells = feats[lvl][b][ys][:, xs]                      # [ny, nx, C]
+        out[n] = torch.einsum("ir,rqc,jq->ijc", ay, cells, ax)
+        g = torch.einsum("ir,ijc,jq->rqc", ay, dout[n], ax)
+        grads[lvl][b][ys[:, None], xs[None, :]] += g
+    return out, grads, sizes
+
+
+def _class_rois(rng, case, B, R):
+    """[B, R, 4] rois of one of chip_smoke.py's check classes on the
+    256x320 image of SHAPES."""
+    from detectinblur_tpu_torch.models.anchors import grid_anchors
+
+    H, W = 256, 320
+    u = lambda lo, hi: rng.uniform(lo, hi, (B, R))
+    if case == "anchors":
+        p2_to_p6 = SHAPES + ((4, 5),)
+        anchors = np.concatenate(grid_anchors(p2_to_p6, (H, W)))
+        return anchors[rng.integers(len(anchors), size=(B, R))].astype(np.float32)
+    if case == "slivers":       # 1-8 px across, tall and wide
+        x, y = u(0, W), u(0, H)
+        thin, long = u(1, 8), u(20, 250)
+        tall = np.stack([x, y, x + thin, y + long], -1)
+        wide = np.stack([x, y, x + long, y + thin], -1)
+        b = np.where(np.arange(R)[None, :, None] % 2 == 0, tall, wide)
+    elif case == "past_edge":
+        x, y = u(-150, W), u(-150, H)
+        b = np.stack([x, y, x + u(150, 450), y + u(150, 450)], -1)
+    elif case == "giants":      # clamped to P5
+        b = np.stack([u(-50, 50), u(-50, 50), u(1000, 2000), u(1000, 2000)], -1)
+    elif case == "zeroed":      # invalid slots
+        b = np.zeros((B, R, 4))
+    else:                       # "border": samples where low == high
+        b = np.stack([W - u(2, 10), H - u(2, 10), W + u(0, 4), H + u(0, 4)], -1)
+    return b.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["anchors", "slivers", "past_edge", "giants",
+                                  "zeroed", "border"])
+def test_separable_form_matches_plain_and_jax(rng, case):
+    """The separable form (the algebra of the CUDA backward and of the
+    forward it transposes), modelled in float32 torch, on one class of
+    chip_smoke.py's check rois: the forward within 1e-5 and the
+    backward within 1e-5 of the largest value of the plain versions (the
+    same products, summed in another order); within 2e-5 abs of JAX's
+    ``multiscale_roi_align`` and 3e-5 abs + 1e-4 rel of its ``jax.vjp``
+    (the tolerances above). No roi touches more than 28 rows or columns."""
+    B, R = 2, 12
+    feats = _feats(rng, B)
+    boxes = _class_rois(rng, case, B, R)
+    dout = _dout(rng, B, R)
+    tf = [torch.from_numpy(f) for f in feats]
+    geom = roi_geometry(torch.from_numpy(boxes).reshape(-1, 4), SHAPES)
+    td = torch.from_numpy(dout).reshape(B * R, 7, 7, -1)
+    out, grads, sizes = _separable(tf, geom, R, td)
+    assert max(max(s) for s in sizes) <= 28
+    if case == "giants":
+        assert bool((geom.level == 3).all())
+    if case == "border":
+        assert bool(((geom.y_idx[..., 0] == geom.y_idx[..., 1])
+                     & (geom.y_w[..., 0] != 0)).any())
+
+    plain = roi_align_from_geometry(tf, geom, R)
+    torch.testing.assert_close(out, plain, rtol=0,
+                               atol=1e-5 * plain.abs().max().item())
+    for g, r in zip(grads, roi_align_backward_from_geometry(td, geom, R,
+                                                            SHAPES)):
+        torch.testing.assert_close(g, r, rtol=0,
+                                   atol=1e-5 * r.abs().max().item())
+
+    np.testing.assert_allclose(out.reshape(B, R, 7, 7, -1).numpy(),
+                               _jax_expected(feats, boxes), atol=2e-5)
+    for b in range(B):
+        _, vjp = jax.vjp(lambda fs: jax_roi_align(fs, boxes[b]),
+                         tuple(jnp.asarray(f[b]) for f in feats))
+        for g, r in zip(grads, vjp(jnp.asarray(dout[b]))[0]):
+            np.testing.assert_allclose(g[b].numpy(), np.asarray(r),
+                                       atol=3e-5, rtol=1e-4)
