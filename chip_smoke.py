@@ -36,11 +36,35 @@ Phases (any failure exits non-zero and prints no result):
   7. Hold the card's predict and the card's loss and gradients
      (``highest`` precision, kernels) against the port's CPU (plain
      versions) on a small input.
+  8. The entry points, as a user runs them, at full width (ResNet50-FPN,
+     91 classes, 800/1333, per-batch model buckets, the default
+     ``highest`` precision) on a synthetic COCO directory made from seed 0
+     (COCO's image sizes, 8 train and 16 val images, 2-6 boxes each over
+     90 categories) and ``tests/torch_reference``'s He-scaled random
+     weights in torchvision's layout (a ``.pth``, so that the eval has
+     detections to score). ``cli.train.main`` (from that ``.pth``,
+     blurred, expanded GT, batch 2, 3 steps, eval before and after) must
+     launch both kernels, keep its losses finite and write ``model_0.pt``,
+     whose ``restore_checkpoint`` gives back weights, momentum buffers and
+     step bit for bit. ``cli.evaluate.main``, clean with that checkpoint
+     and as a one-param blur sweep from the ``.pth``, must launch
+     ``roi_align_fwd`` once per image (5 cells for the sweep). Every eval
+     must give 19 finite stats with detections scored (AR100 >= 0). Each
+     kernel is held against its plain version on the inputs each CLI
+     handed it (one per model bucket and batch shape). The clean eval runs
+     again under torch.profiler, for the device's busy share and each
+     stage of the CLI's own step, and on the CPU, whose 19 stats must
+     match the card's. Prints each eval loop's wall-clock img/s (a smoke
+     reading: each bucket's first step is cold), the wall ms of its steps
+     (CUDA events around each step) and the share outside them, the model
+     buckets, the PSF banks' generation time and the peak memory.
 
-The last two lines are a JSON object describing each kernel and
-``{"ok": true, "device": {...}}``.
+The last two lines are a JSON object describing each kernel (its
+``launches`` summed over the counted runs of every path, one count per
+path in ``launches_by_path``) and ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -111,29 +135,41 @@ def check_kernels(bucket, gen):
     out = {}
     for dt in (torch.float32, torch.bfloat16):
         feats = [f.to(dt) for f in feats32]
-        got = multiscale_roi_align_cuda(feats, rois).float()
-        ref = multiscale_roi_align(feats, rois).float()
-        torch.cuda.synchronize()
-        err = (got - ref).abs()
-        scale = ref.abs().max().item()
-        if dt == torch.float32:
-            # Same samples and weights, float32 sums reassociated.
-            tol = 1e-5 * scale
-            ok = err.max().item() <= tol
-            rule = f"max_abs_err <= 1e-5 * max|plain| = {tol:.3g}"
-        else:
-            # Both round one float32 sum to bf16; reassociation can flip
-            # that rounding by one bf16 ulp (<= 2^-7 relative).
-            bound = 2 ** -7 * torch.maximum(got.abs(), ref.abs()) + 1e-5 * scale
-            ok = bool((err <= bound).all())
-            rule = "|k - p| <= 2^-7 max(|k|,|p|) + 1e-5 max|plain|"
-        print(f"roi_align_fwd {str(dt).split('.')[-1]} at {tuple(rois.shape)} "
-              f"rois: max_abs_err {err.max().item():.3g} (max|plain| "
-              f"{scale:.3g}), tolerance {rule}: {'ok' if ok else 'FAILED'}")
-        if not ok:
-            sys.exit("roi_align_fwd disagrees with its plain version")
-        out[dt] = err.max().item()
+        out[dt] = _hold(f"roi_align_fwd {_name(dt)} at {tuple(rois.shape)} "
+                        "rois", multiscale_roi_align_cuda(feats, rois),
+                        multiscale_roi_align(feats, rois),
+                        bf16_rounded=dt == torch.bfloat16)
     return out
+
+
+def _name(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def _hold(what, got, ref, bf16_rounded=False):
+    """Print and return the max abs error of a kernel's output ``got``
+    against its plain version's ``ref`` (a tensor or a list of them);
+    exit unless they agree. The same samples and weights, float32 sums
+    reassociated: within 1e-5 * max|plain|. With ``bf16_rounded`` both
+    round one float32 sum to bf16, and reassociation can flip that
+    rounding by one bf16 ulp (<= 2^-7 relative)."""
+    torch.cuda.synchronize()
+    pairs = [(g.float(), r.float()) for g, r in zip(
+        *(x if isinstance(x, (list, tuple)) else [x] for x in (got, ref)))]
+    err = max((g - r).abs().max().item() for g, r in pairs)
+    scale = max(r.abs().max().item() for _, r in pairs)
+    if bf16_rounded:
+        ok = all(bool(((g - r).abs() <= 2 ** -7 * torch.maximum(g.abs(), r.abs())
+                       + 1e-5 * scale).all()) for g, r in pairs)
+        rule = "|k - p| <= 2^-7 max(|k|,|p|) + 1e-5 max|plain|"
+    else:
+        ok = err <= 1e-5 * scale
+        rule = f"max_abs_err <= 1e-5 * max|plain| = {1e-5 * scale:.3g}"
+    print(f"{what}: max_abs_err {err:.3g} (max|plain| {scale:.3g}), "
+          f"tolerance {rule}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        sys.exit(f"{what}: the kernel disagrees with its plain version")
+    return err
 
 
 def roi_align_bound(feats, g, R):
@@ -171,22 +207,13 @@ def check_bwd_kernel(bucket, gen):
     dout32[::9] = 0.0   # all-zero cotangents: the unsampled slots
     out = {}
     for dt in (torch.float32, torch.bfloat16):
-        dout = dout32.to(dt).cuda()
-        got = roi_align_bwd(dout, geom, TRAIN_R, shapes)
-        ref = roi_align_backward_from_geometry(dout, geom, TRAIN_R, shapes)
-        torch.cuda.synchronize()
-        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
-        scale = max(r.abs().max().item() for r in ref)
         # Same products of the same (dtype-rounded) cotangent and weights;
         # only the order of the float32 sums differs (atomics).
-        ok = err <= 1e-5 * scale
-        print(f"roi_align_bwd {str(dt).split('.')[-1]} cotangent at "
-              f"{B} x {TRAIN_R} rois: max_abs_err {err:.3g} (max|plain grad| "
-              f"{scale:.3g}), tolerance max_abs_err <= 1e-5 * max|plain| = "
-              f"{1e-5 * scale:.3g}: {'ok' if ok else 'FAILED'}")
-        if not ok:
-            sys.exit("roi_align_bwd disagrees with its plain version")
-        out[dt] = err
+        dout = dout32.to(dt).cuda()
+        out[dt] = _hold(
+            f"roi_align_bwd {_name(dt)} cotangent at {B} x {TRAIN_R} rois",
+            roi_align_bwd(dout, geom, TRAIN_R, shapes),
+            roi_align_backward_from_geometry(dout, geom, TRAIN_R, shapes))
     # The same call as on the train path, on these spread-out rois: beside
     # the train step's own rois (time_bwd_kernel) it shows how much of the
     # kernel's time is atomics contending for shared cells.
@@ -297,6 +324,43 @@ def _train_batch(gen):
         gt_valid=torch.ones(B, TRAIN_G, dtype=torch.bool, device="cuda"))
 
 
+@contextlib.contextmanager
+def _capture_roi_align(fwd, bwd):
+    """While open, record what the RoIAlign Function hands its kernels,
+    the first call of each shape and dtype: ``fwd`` gets (boxes, levels)
+    keyed by (boxes' shape, level shapes, dtype), ``bwd`` gets (cotangent,
+    geometry saved by the forward, rois per image, level shapes, feature
+    dtype) keyed by (cotangent's shape, level shapes, dtype). Nothing is
+    launched for it, so the launch counts stay the path's own."""
+    from detectinblur_tpu_torch.ops import roi_align_cuda
+    from detectinblur_tpu_torch.ops.roi_align import RoIGeometry
+
+    fn = roi_align_cuda._MultiscaleRoIAlign
+    forward, backward = fn.forward, fn.backward
+
+    def capture_fwd(ctx, boxes, *features):
+        key = (tuple(boxes.shape), tuple(tuple(f.shape[1:3]) for f in features),
+               features[0].dtype)
+        if key not in fwd:
+            fwd[key] = (boxes.detach().clone(), [f.detach() for f in features])
+        return forward(ctx, boxes, *features)
+
+    def capture_bwd(ctx, dout):
+        Bn, R = dout.shape[:2]
+        key = (tuple(dout.shape), tuple(ctx.level_shapes), dout.dtype)
+        if key not in bwd:
+            bwd[key] = (dout.reshape(Bn * R, 7, 7, -1).contiguous(),
+                        RoIGeometry(*ctx.saved_tensors), R, ctx.level_shapes,
+                        ctx.feature_dtype)
+        return backward(ctx, dout)
+
+    fn.forward, fn.backward = staticmethod(capture_fwd), staticmethod(capture_bwd)
+    try:
+        yield
+    finally:
+        fn.forward, fn.backward = staticmethod(forward), staticmethod(backward)
+
+
 def run_train(gen):
     """The training step with bench_train.py's protocol. Returns (launches
     per kernel in the counted step, the levels the step's RoIAlign forward
@@ -307,7 +371,6 @@ def run_train(gen):
         FasterRCNNConfig,
     )
     from detectinblur_tpu_torch.ops import roi_align_cuda
-    from detectinblur_tpu_torch.ops.roi_align import RoIGeometry
     from detectinblur_tpu_torch.train.engine import (
         apply_blur_and_expand,
         images01,
@@ -330,27 +393,12 @@ def run_train(gen):
     # roi_align_fwd (the levels) and roi_align_bwd (its cotangent and the
     # geometry saved by the forward).
     state, _ = step(state, batch, generator=gen)
-    fn = roi_align_cuda._MultiscaleRoIAlign
-    forward, backward = fn.forward, fn.backward
-    levels, captured = [], []
-
-    def capture_fwd(ctx, boxes, *features):
-        levels.append([f.detach() for f in features])
-        return forward(ctx, boxes, *features)
-
-    def capture(ctx, dout):
-        Bn, R = dout.shape[:2]
-        captured.append((dout.reshape(Bn * R, 7, 7, -1).contiguous(),
-                         RoIGeometry(*ctx.saved_tensors), R,
-                         ctx.level_shapes, ctx.feature_dtype))
-        return backward(ctx, dout)
-
-    fn.forward, fn.backward = staticmethod(capture_fwd), staticmethod(capture)
-    try:
+    fwd, bwd = {}, {}
+    with _capture_roi_align(fwd, bwd):
         state, _ = step(state, batch, generator=gen)
-    finally:
-        fn.forward, fn.backward = staticmethod(forward), staticmethod(backward)
     torch.cuda.synchronize()
+    (_, levels), = fwd.values()
+    captured, = bwd.values()
 
     # The main path, counted.
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -419,7 +467,7 @@ def run_train(gen):
     summary = {"img_s": img_s, "window_img_s": rates, "stage_ms": acc,
                "peak_mem_gib": peak}
     print("train " + json.dumps(summary))
-    return launches, levels[0], captured[0]
+    return launches, levels, captured
 
 
 def time_bwd_kernel(captured, launches, errs):
@@ -746,6 +794,277 @@ def check_train_against_cpu():
         sys.exit("the card's loss or gradients disagree with the CPU's")
 
 
+def _write_coco(root):
+    """The synthetic COCO directory of phase 8 (``tests/synthetic_coco``)."""
+    from synthetic_coco import COCO_SIZES, write_coco
+
+    sizes = lambda n: [COCO_SIZES[i % len(COCO_SIZES)] for i in range(n)]
+    return write_coco(root, {"train2017": sizes(8), "val2017": sizes(16)},
+                      seed=0, n_cats=90, boxes=(2, 6))
+
+
+def _counted(fn):
+    """(fn's result, launches of each kernel during fn) with the counts
+    set to 0 just before and read just after."""
+    from detectinblur_tpu_torch.ops import roi_align_cuda
+
+    kernels = (roi_align_cuda.roi_align_fwd, roi_align_cuda.roi_align_bwd)
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in kernels}
+
+
+def _check_stats(name, stats):
+    """19 finite stats, with detections scored: AR100 is -1 only when no
+    image of the eval has a detection."""
+    stats = np.asarray(stats)
+    print(f"{name}: 19 stats {np.round(stats, 4).tolist()}")
+    if stats.shape != (19,) or not np.isfinite(stats).all():
+        sys.exit(f"{name}: stats are not 19 finite numbers")
+    if stats[8] < 0:
+        sys.exit(f"{name}: no detection to score (AR100 {stats[8]})")
+
+
+def check_captured(path, fwd, bwd):
+    """Hold each kernel against its plain version on the inputs that
+    ``path`` handed it (``_capture_roi_align``: the first call of each
+    shape, so one per model bucket); returns the model buckets met."""
+    from detectinblur_tpu_torch.ops.roi_align import (
+        multiscale_roi_align,
+        roi_align_backward_from_geometry,
+    )
+    from detectinblur_tpu_torch.ops.roi_align_cuda import (
+        multiscale_roi_align_cuda,
+        roi_align_bwd,
+    )
+
+    bucket = lambda shapes: f"{4 * shapes[0][0]}x{4 * shapes[0][1]}"
+    for (bshape, shapes, dt), (boxes, feats) in fwd.items():
+        with torch.no_grad():
+            _hold(f"{path}: roi_align_fwd {_name(dt)} at B={bshape[0]} x "
+                  f"{bshape[1]} rois on bucket {bucket(shapes)}",
+                  multiscale_roi_align_cuda(feats, boxes),
+                  multiscale_roi_align(feats, boxes),
+                  bf16_rounded=dt == torch.bfloat16)
+    for (_, shapes, dt), (dout, geom, R, level_shapes, _) in bwd.items():
+        _hold(f"{path}: roi_align_bwd {_name(dt)} cotangent at "
+              f"{dout.shape[0] // R} x {R} rois on bucket {bucket(shapes)}",
+              roi_align_bwd(dout, geom, R, level_shapes),
+              roi_align_backward_from_geometry(dout, geom, R, level_shapes))
+    return {(4 * shapes[0][0], 4 * shapes[0][1]) for _, shapes, _ in fwd}
+
+
+STAGES = ("eval.to_device", "eval.blur_expand", "predict.preprocess",
+          "predict.backbone", "predict.rpn", "predict.roi_align",
+          "predict.head_postprocess")
+
+
+def profile_eval(argv, loops):
+    """``cli.evaluate.main(argv)`` under torch.profiler. Returns its stats
+    and, per evaluated image: the device's busy time (kernel time) and its
+    share of the eval loop's wall clock and of the steps' wall time; each
+    profiler range of the step (``STAGES``) on the host's clock, the
+    kernel time launched inside it, and its span on the device; and the
+    kernels that take most of the device's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import detectinblur_tpu_torch.cli.evaluate as cli_eval
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stats = cli_eval.main(argv)
+    loop = loops[-1]
+    n = loop["images"]
+    cuda = torch.autograd.DeviceType.CUDA
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == cuda and e.key not in STAGES
+               and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n   # ms
+    stages = {}
+    for e in avg:
+        if e.key in STAGES:
+            s = stages.setdefault(e.key, {})
+            if e.device_type == cuda:
+                s["device_span_ms"] = e.device_time_total / 1e3 / n
+            else:
+                s["host_ms"] = e.cpu_time_total / 1e3 / n
+                s["kernel_ms"] = e.device_time_total / 1e3 / n
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return stats, {
+        "images": n, "wall_s": loop["wall_s"],
+        "step_ms_per_image": loop["step_ms_per_image"],
+        "device_busy_ms_per_image": busy or "not measured",
+        "device_busy_share_of_loop": busy * n / (loop["wall_s"] * 1e3)
+        if busy else "not measured",
+        "device_busy_share_of_steps": busy / loop["step_ms_per_image"]
+        if busy else "not measured",
+        "stages_per_image": {k: stages[k] for k in STAGES if k in stages},
+        "top_kernels_ms_per_image": [
+            (e.key[:70], e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in top]}
+
+
+def run_entry_points():
+    """Phase 8: cli.train, then cli.evaluate clean and as a blur sweep, on
+    a synthetic COCO, each kernel held against its plain version on the
+    inputs each CLI handed it; then the clean eval again under the
+    profiler and on the CPU. Returns the launches of each kernel per
+    CLI."""
+    import tempfile
+
+    import detectinblur_tpu_torch.cli.evaluate as cli_eval
+    import detectinblur_tpu_torch.cli.train as cli_train
+    from detectinblur_tpu_torch.data import blur_sampling
+    from detectinblur_tpu_torch.train import eval_loop
+    from detectinblur_tpu_torch.train.checkpoint import restore_checkpoint
+    from detectinblur_tpu_torch.train.state import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    banks, loops, path = [], [], ["cli.train"]
+
+    def timed_bank(generator, **kw):
+        t0 = time.perf_counter()
+        bank = blur_sampling.generate_psf_bank(generator, **kw)
+        torch.cuda.synchronize()
+        banks.append({"shape": list(bank.shape), "iters": kw.get("iters", 2000),
+                      "s": time.perf_counter() - t0})
+        return bank
+
+    def recorded_eval(*args, **kwargs):
+        stats, loop = eval_loop.evaluate_coco(*args, **kwargs)
+        loops.append(dict(path=path[0], **loop))
+        return stats, loop
+
+    cli_train.generate_psf_bank = cli_eval.generate_psf_bank = timed_bank
+    cli_train.evaluate_coco = cli_eval.evaluate_coco = recorded_eval
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        from torch_reference import make_random_fasterrcnn_sd
+
+        root = _write_coco(str(Path(tmp) / "coco"))
+        out = str(Path(tmp) / "out")
+        pth = str(Path(tmp) / "random_torchvision.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    make_random_fasterrcnn_sd(np.random.default_rng(0)).items()},
+                   pth)
+        # lr 1e-5: after 3 steps the random model still scores boxes above
+        # the 0.05 threshold (at 2.5e-3 it scored none), so every eval has
+        # detections to score.
+        fwd, bwd = {}, {}
+        t0 = time.perf_counter()
+        with _capture_roi_align(fwd, bwd):
+            run, train_launches = _counted(lambda: cli_train.main([
+                "--data-path", root, "--blur_train", "--expand_target_boxes",
+                "-b", "2", "--epochs", "1", "--early_stop", "3",
+                "--output_dir", out, "--eval_first", "--print-freq", "1",
+                "--lr", "1e-5", "--start_from_weights", pth]))
+        print(f"cli.train: {time.perf_counter() - t0:.2f} s, launches "
+              f"{train_launches}, losses " + json.dumps(run.losses))
+        if min(train_launches.values()) == 0:
+            sys.exit("cli.train did not launch every kernel")
+        if len(run.losses) != 3 or not all(
+                np.isfinite(v) for m in run.losses for v in m.values()):
+            sys.exit("cli.train: missing or non-finite losses")
+        for tag, stats in sorted(run.evals.items()):
+            _check_stats(f"cli.train eval {tag}", stats)
+        check_captured("cli.train", fwd, bwd)
+        del fwd, bwd
+
+        ckpt = Path(out) / "model_0.pt"
+        model = cli_train.build_model(None, "cuda")
+        opt, _ = make_optimizer(model)
+        state = restore_checkpoint(str(ckpt), create_train_state(model, opt))
+        same_weights = all(torch.equal(a, b) for a, b in zip(
+            model.state_dict().values(),
+            run.state.model.state_dict().values()))
+        bufs = lambda o: [o.state[p]["momentum_buffer"]
+                          for g in o.param_groups for p in g["params"]]
+        same_momentum = (len(bufs(opt)) == len(bufs(run.state.optimizer)) > 0
+                         and all(torch.equal(a, b) for a, b in zip(
+                             bufs(opt), bufs(run.state.optimizer))))
+        print(f"{ckpt.name} ({ckpt.stat().st_size} bytes): weights "
+              f"{same_weights}, momentum buffers {same_momentum}, step "
+              f"{state.step} == {run.state.step}")
+        if not (same_weights and same_momentum
+                and state.step == run.state.step):
+            sys.exit("restore_checkpoint did not give the state back bit for bit")
+        del model, opt, state, run
+
+        eval_launches = {"roi_align_fwd": 0, "roi_align_bwd": 0}
+        buckets = set()
+        clean = ["--data-path", root, "--resume", str(ckpt), "--vanilla_eval"]
+        sweep = ["--data-path", root, "--start_from_weights", pth,
+                 "--blur_eval", "--param_index", "1"]
+        for name, argv, cells in (("clean", clean, 1), ("sweep P1", sweep, 5)):
+            path[0] = f"cli.evaluate {name}"
+            fwd = {}
+            t0 = time.perf_counter()
+            with _capture_roi_align(fwd, {}):
+                got, launches = _counted(lambda: cli_eval.main(argv))
+            print(f"{path[0]}: {time.perf_counter() - t0:.2f} s, launches "
+                  f"{launches}")
+            results = {0: got} if cells == 1 else got
+            if len(results) != cells:
+                sys.exit(f"{path[0]}: {len(results)} cells, want {cells}")
+            for cell, stats in sorted(results.items()):
+                _check_stats(f"{path[0]} {cell}", stats)
+            if launches["roi_align_fwd"] != 16 * cells:
+                sys.exit(f"{path[0]}: roi_align_fwd launched "
+                         f"{launches['roi_align_fwd']} times for "
+                         f"{16 * cells} images")
+            for k, v in launches.items():
+                eval_launches[k] += v
+            buckets |= check_captured(path[0], fwd, {})
+            del fwd
+            if cells == 1:
+                clean_stats = got
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        path[0] = "cli.evaluate clean, profiled"
+        _, profiled = profile_eval(clean, loops)
+        print("eval profile " + json.dumps(profiled))
+        # The card's clean eval against the CPU's (the plain versions), on
+        # the same checkpoint and images: the CPU tests' tolerance against
+        # JAX, 1e-3 absolute and 1e-3 of each stat; and the detections
+        # above the score threshold within 2% in number (a float32 score
+        # near the threshold or an NMS tie may fall either way).
+        path[0] = "cli.evaluate clean, CPU"
+        t0 = time.perf_counter()
+        cpu_stats = cli_eval.main(clean + ["--device", "cpu"])
+        err = np.abs(np.asarray(clean_stats) - cpu_stats)
+        dets = [s["detections"] for s in loops
+                if s["path"] in ("cli.evaluate clean", path[0])]
+        ok = bool(((err <= 1e-3) & (err <= 1e-3 * np.abs(cpu_stats) + 1e-7))
+                  .all()) and abs(dets[0] - dets[1]) <= 0.02 * dets[1]
+        print(f"card vs CPU clean eval ({time.perf_counter() - t0:.2f} s on "
+              f"the CPU): max |stat difference| {err.max():.3g}, tolerance "
+              f"1e-3 and 1e-3 of each stat; detections {dets[0]} vs "
+              f"{dets[1]}, tolerance 2%: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            sys.exit("the card's eval disagrees with the CPU's")
+    for s in loops:
+        print("eval loop " + json.dumps(s))
+    main_loops = [s for s in loops if s["path"] in ("cli.evaluate clean",
+                                                    "cli.evaluate sweep P1")]
+    n = sum(s["images"] for s in main_loops)
+    wall = sum(s["wall_s"] for s in main_loops)
+    step = sum(s["step_ms_per_image"] * s["images"] for s in main_loops)
+    # A smoke reading: 16 images an eval, each bucket's first step cold.
+    print("entry points " + json.dumps({
+        "eval_img_s_smoke": n / wall, "eval_step_ms_per_image": step / n,
+        "eval_share_outside_steps": 1 - step / 1e3 / wall, "eval_images": n,
+        "eval_device_busy_ms_per_image": profiled["device_busy_ms_per_image"],
+        "eval_device_busy_share_of_steps":
+            profiled["device_busy_share_of_steps"],
+        "model_buckets": sorted(buckets), "psf_banks": banks,
+        "peak_mem_gib": peak}))
+    return {"cli_train": train_launches, "cli_evaluate": eval_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -755,6 +1074,9 @@ def main():
         sys.exit(f"chip_smoke: no detectinblur_tpu_torch/ beside {here}; "
                  "run it from a checkout of the repo")
     sys.path.insert(0, str(here))
+    # The test helpers that make phase 8's data and weights (numpy and
+    # torch only), imported by name as the tests import them.
+    sys.path.insert(1, str(here / "tests"))
     from detectinblur_tpu_torch.utils import cuda_build
 
     smi = subprocess.run(
@@ -790,7 +1112,20 @@ def main():
     del levels, captured
     check_against_cpu()
     check_train_against_cpu()
+    entry = run_entry_points()
 
+    by_path = {
+        "roi_align_fwd": {"serving": launches,
+                          "train_step": train_launches["roi_align_fwd"]},
+        "roi_align_bwd": {"train_step": train_launches["roi_align_bwd"]},
+    }
+    for path, counts in entry.items():
+        for name, n in counts.items():
+            if n:
+                by_path[name][path] = n
+    for k in kernels:
+        k["launches_by_path"] = by_path[k["name"]]
+        k["launches"] = sum(by_path[k["name"]].values())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,10 @@
-"""PyTorch + CUDA port of the detectinblur_tpu serving path.
+"""PyTorch + CUDA port of detectinblur_tpu: blur synthesis, Faster R-CNN
+ResNet50-FPN inference and training, COCO evaluation and the ``train`` and
+``evaluate`` command lines.
 
 Modules mirror the JAX package's paths (``ops/``, ``models/``, ``data/``,
-``utils/``) so each counterpart is found by name. Public functions keep
+``eval/``, ``train/``, ``parallel/``, ``cli/``, ``utils/``) so each
+counterpart is found by name. Public functions keep
 the JAX package's layouts (NHWC images, ``[B, H, W, C]`` FPN levels,
 padded arrays with ``valid`` masks) so that parity tests compare like with
 like. Entry points run on CUDA unless the caller passes ``device="cpu"``.

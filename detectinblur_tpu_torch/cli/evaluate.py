@@ -1,0 +1,153 @@
+"""Evaluation entry point.
+
+    python -m detectinblur_tpu_torch.cli.evaluate --data-path /data/coco \\
+        --resume model_36.pt --blur_eval [--param_index 1] [--device cpu]
+
+Port of ``detectinblur_tpu/cli/evaluate.py`` (evaluate.py of the
+reference): one clean COCO val eval (``--vanilla_eval``, or without
+``--blur_eval``), or the synthetic blur sweep, EVAL_PARAMS[1:] x
+EVAL_FRACTIONS[1:] with every image blurred (evaluate.py:299-370), from a
+generated or a stored PSF bank, optionally with the expanded-GT rewrite
+(``--expand_target_boxes``). Each eval is batch 1 with the image's own
+model bucket. Remedy flags (warp, custom norm, BatchNorm modes,
+deblur-first, ensembles, natural-blur datasets, corruptions, PSF
+dilation) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from detectinblur_tpu_torch.cli.args import eval_parser, refuse_unported
+from detectinblur_tpu_torch.cli.train import BLUR_STAT_TAGS, build_model
+from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
+from detectinblur_tpu_torch.data.blur_sampling import (
+    BlurPolicy,
+    generate_psf_bank,
+    load_psf_bank,
+)
+from detectinblur_tpu_torch.data.coco import get_coco
+from detectinblur_tpu_torch.data.loader import DetectionLoader
+from detectinblur_tpu_torch.ops.psf import EVAL_FRACTIONS, EVAL_PARAMS
+from detectinblur_tpu_torch.parallel.dist import process_count, process_index
+from detectinblur_tpu_torch.train.checkpoint import restore_weights
+from detectinblur_tpu_torch.train.engine import make_eval_step
+from detectinblur_tpu_torch.train.eval_loop import evaluate_coco
+from detectinblur_tpu_torch.utils.convert import (
+    load_torch_state_dict,
+    params_from_torchvision,
+)
+from detectinblur_tpu_torch.utils.device import resolve_device
+from detectinblur_tpu_torch.utils.logging import ScalarWriter
+
+
+def load_params(model, path: str):
+    """Weights into ``model``: a ``.pth`` holds torchvision (or reference
+    checkpoint) weights, anything else is the port's own checkpoint or a
+    bare state dict of the port."""
+    if path.endswith(".pth"):
+        model.load_state_dict(params_from_torchvision(
+            load_torch_state_dict(path), model.cfg.num_classes))
+        return model
+    return restore_weights(path, model)
+
+
+def run_cell(args, model, dataset_val, policy: BlurPolicy, psf_bank,
+             step_cache: Optional[dict] = None) -> np.ndarray:
+    """One COCO eval (engine.py:220-416 of the reference) under ``policy``:
+    batch 1, each image at its own model bucket, the eval steps cached by
+    bucket in ``step_cache`` (shared across the sweep's cells). Prints the
+    distinct model buckets this eval met."""
+    loader = DetectionLoader(
+        dataset_val, 1, policy, psf_bank, shuffle=False,
+        num_processes=process_count(), process_index=process_index(),
+        drop_last=False, num_workers=args.workers)
+    blur = policy.prob > 0
+    expand = args.expand_target_boxes and blur
+    eval_steps = step_cache if step_cache is not None else {}
+    met = set()
+
+    def eval_step(m, batch):
+        b = model_bucket_for_batch(batch.hw)
+        met.add(b)
+        if b not in eval_steps:
+            eval_steps[b] = make_eval_step(model, b, blur_eval=blur,
+                                           expand_target_boxes=expand)
+        return eval_steps[b](m, batch)
+
+    stats, _ = evaluate_coco(eval_step, model, loader, dataset_val.index,
+                             expand_target_boxes=expand,
+                             early_stop=args.early_stop)
+    print(f"model buckets met: {len(met)} {sorted(met)}")
+    return stats
+
+
+def main(argv=None):
+    """Returns the 19 stats of a clean eval, or {(param_index,
+    fraction_index): stats} for the blur sweep."""
+    parser = eval_parser()
+    args = parser.parse_args(argv)
+    refuse_unported(parser, args)
+    device = resolve_device(args.device)
+    np.random.seed(1337)
+
+    model = build_model(args, device)
+    path = args.resume or args.start_from_weights
+    if path:
+        load_params(model, path)
+    else:
+        print("no checkpoint given; evaluating random weights")
+    dataset_val = get_coco(args.data_path, "val")
+
+    writer = ScalarWriter(args.tensorboard_path)
+    try:
+        if args.vanilla_eval or not args.blur_eval:
+            stats = run_cell(args, model, dataset_val, BlurPolicy(prob=0.0),
+                             None)
+            for name, value in zip(BLUR_STAT_TAGS, stats[:12]):
+                writer.add_scalar(f"Normal/{name}", float(value), 0)
+            return stats
+
+        # The sweep skips param 0 and fraction 0 (evaluate.py:302-310).
+        if args.use_stored_psfs:
+            if not args.stored_psf_directory:
+                raise ValueError("--use_stored_psfs requires "
+                                 "--stored_psf_directory")
+            bank = load_psf_bank(args.stored_psf_directory, max_bank=256)
+        else:
+            # At the sweep's own exposures (evaluate.py:299-322); its
+            # fraction indices line up with BLUR_FRACTIONS', which the
+            # decisions quantize to.
+            t0 = time.perf_counter()
+            bank = generate_psf_bank(
+                torch.Generator(device=device).manual_seed(7), bank_size=256,
+                fractions=tuple(EVAL_FRACTIONS[1:]),
+                center=not args.dont_center_psf)
+            print(f"PSF bank {bank.shape} generated on {device} in "
+                  f"{time.perf_counter() - t0:.3f} s")
+        all_stats = {}
+        step_cache = {}
+        for pi, param in enumerate(EVAL_PARAMS[1:], start=1):
+            if args.param_index is not None and pi != args.param_index:
+                continue
+            for fi, fraction in enumerate(EVAL_FRACTIONS[1:], start=1):
+                policy = BlurPolicy(prob=1.0, blur_type=param,
+                                    blur_exposure=fraction)
+                stats = run_cell(args, model, dataset_val, policy, bank,
+                                 step_cache=step_cache)
+                all_stats[(pi, fi)] = stats
+                for name, value in zip(BLUR_STAT_TAGS, stats[:12]):
+                    writer.add_scalar(f"P{pi}/{name}", float(value), fi)
+                print(f"P{pi} E{fi} (param={param}, fraction={fraction:.3f}): "
+                      f"mAP={stats[0]:.4f}")
+        return all_stats
+    finally:
+        writer.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -13,7 +13,9 @@ Port of ``detectinblur_tpu/models/faster_rcnn.py`` (``FasterRCNNConfig``
 
 ``predict`` is the composition of the public stage methods
 ``preprocess``, ``features``, ``propose``, ``pool`` and ``detect``, which
-a caller may also run one by one (the smoke script times them so).
+a caller may also run one by one (the smoke script times them so). Each
+runs inside a ``torch.profiler.record_function`` range (``predict.rpn``
+and so on), so a profiler trace of any caller shows where its time goes.
 
 ``loss`` runs the same stages in training form (train top-k sizes, anchor
 and roi sampling, RoIAlign through the differentiable kernel pair) and
@@ -33,6 +35,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from detectinblur_tpu_torch.models.detection_transform import (
     preprocess_batch,
@@ -191,11 +194,17 @@ class FasterRCNN(nn.Module):
         """images [B, Hb0, Wb0, 3] raw 0..1 with the valid region at the
         top-left, ``hw`` [B, 2] valid sizes (a host array), ``bucket`` the
         static model bucket -> fixed-size ``Detections``."""
-        batched, new_hw = self.preprocess(images.to(self.device), hw, bucket)
-        feats = self.features(batched)
-        proposals, valid = self.propose(feats, new_hw)
-        pooled = self.pool(feats, proposals, valid)
-        return self.detect(pooled, proposals, valid, new_hw, hw)
+        with record_function("predict.preprocess"):
+            batched, new_hw = self.preprocess(images.to(self.device), hw,
+                                              bucket)
+        with record_function("predict.backbone"):
+            feats = self.features(batched)
+        with record_function("predict.rpn"):
+            proposals, valid = self.propose(feats, new_hw)
+        with record_function("predict.roi_align"):
+            pooled = self.pool(feats, proposals, valid)
+        with record_function("predict.head_postprocess"):
+            return self.detect(pooled, proposals, valid, new_hw, hw)
 
     # ------------------------------------------------------------ training
     def loss(self, images: torch.Tensor, hw, gt_boxes: torch.Tensor,

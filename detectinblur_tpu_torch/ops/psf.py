@@ -12,7 +12,7 @@ sits within float noise of an integer can move the PSF by one pixel.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -21,6 +21,14 @@ from detectinblur_tpu_torch.ops.trajectory import (
     sample_trajectory,
 )
 from detectinblur_tpu_torch.utils.device import resolve_device
+
+# The reference's grids of trajectory exploration and exposure fraction
+# (``detectinblur_tpu/ops/psf.py:229-232``): training draws from the
+# BLUR grid, the evaluation sweep walks the EVAL grid.
+BLUR_PARAMS: Sequence[float] = (0.005, 0.001, 0.00005)
+BLUR_FRACTIONS: Sequence[float] = (1 / 18, 1 / 10, 1 / 5, 1 / 2, 1.0)
+EVAL_PARAMS: Sequence[float] = (0.01, 0.005, 0.001, 0.00005)
+EVAL_FRACTIONS: Sequence[float] = (1 / 100, 1 / 25, 1 / 10, 1 / 5, 1 / 2, 1.0)
 
 
 def rasterize_psf(positions: torch.Tensor, canvas: int,

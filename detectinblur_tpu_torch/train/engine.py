@@ -1,15 +1,18 @@
-"""The training step: device blur, GT expansion, loss, backward, SGD.
+"""The train and eval steps: device blur, GT expansion, then loss,
+backward and SGD, or predict.
 
 Port of ``detectinblur_tpu/train/engine.py`` (``BlurBatch`` :27,
 ``images01`` :48, ``apply_blur_and_expand`` :63, ``make_train_step``
-:126). The JAX step is one jitted program; here it is eager torch, with
-RoIAlign's forward and backward on the hand-written CUDA kernels.
+:126, ``prepare_eval_batch`` :205, ``make_eval_step`` :247). The JAX
+steps are jitted programs; here they are eager torch, with RoIAlign's
+forward and backward on the hand-written CUDA kernels. Both steps take
+the loader's CPU batch and move it to the model's device first.
 
 Not ported yet, and refused with ``NotImplementedError``: the Squint warp
 (``use_warp``), the blur-conditional normalization (``use_custom_norm``),
-the noise / block / JPEG corruptions and PSF dilation. The port's model
-has no BatchNorm modes, so the step has the JAX signature without
-``bn_stats``.
+the noise / block / JPEG corruptions, PSF dilation and deblur-first. The
+port's model has no BatchNorm modes, so the steps have the JAX
+signatures without ``bn_stats``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from detectinblur_tpu_torch.ops.blur import batched_blur
 from detectinblur_tpu_torch.ops.boxes import expand_boxes_by_psf
@@ -36,6 +40,19 @@ class BlurBatch(NamedTuple):
     gt_boxes: torch.Tensor     # [B, G, 4] in image coordinates
     gt_labels: torch.Tensor    # [B, G]
     gt_valid: torch.Tensor     # [B, G] bool
+
+
+def to_device(batch: BlurBatch, device) -> BlurBatch:
+    """The batch on ``device``; ``hw`` stays on the host, where the
+    preprocess and the model bucket read it."""
+    return BlurBatch(*(t if name == "hw" else t.to(device)
+                       for name, t in zip(BlurBatch._fields, batch)))
+
+
+def _refuse(**options) -> None:
+    asked = sorted(k for k, v in options.items() if v)
+    if asked:
+        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
 
 
 def images01(batch: BlurBatch) -> BlurBatch:
@@ -74,18 +91,14 @@ def make_train_step(model, schedule: Callable[[int], float],
     optimizer's learning rate follows ``schedule``. ``generator`` or
     ``draws`` (a ``faster_rcnn.LossDraws``) feed the loss's samplers.
     ``metrics`` holds the four losses and their sum ``loss``, detached."""
-    unported = {"use_warp": use_warp, "use_custom_norm": use_custom_norm,
-                "add_noise": add_noise, "add_block": add_block,
-                "add_jpeg": add_jpeg}
-    asked = sorted(k for k, v in unported.items() if v)
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+    _refuse(use_warp=use_warp, use_custom_norm=use_custom_norm,
+            add_noise=add_noise, add_block=add_block, add_jpeg=add_jpeg)
 
     def step(state: TrainState, batch: BlurBatch,
              generator: Optional[torch.Generator] = None, draws=None):
         if state.model is not model:
             raise ValueError("the state holds another model")
-        batch = images01(batch)
+        batch = images01(to_device(batch, model.device))
         if blur_train:
             batch = apply_blur_and_expand(batch, expand_target_boxes,
                                           precision=model.cfg.precision)
@@ -102,5 +115,53 @@ def make_train_step(model, schedule: Callable[[int], float],
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
         return TrainState(state.step + 1, model, optimizer), metrics
+
+    return step
+
+
+def prepare_eval_batch(batch: BlurBatch, *, blur_eval: bool = False,
+                       expand_target_boxes: bool = False,
+                       precision: str = DEFAULT_PRECISION) -> BlurBatch:
+    """The eval preamble: images to float 0..1, then with ``blur_eval``
+    the device blur and, with ``expand_target_boxes``, the GT expansion.
+    Nothing here is random: the JAX key feeds only the corruptions."""
+    batch = images01(batch)
+    if blur_eval:
+        batch = apply_blur_and_expand(batch, expand_target_boxes,
+                                      precision=precision)
+    return batch
+
+
+def make_eval_step(model, bucket: Tuple[int, int], blur_eval: bool = False,
+                   expand_target_boxes: bool = False, use_warp: bool = False,
+                   use_custom_norm: bool = False, deblur_first: bool = False,
+                   add_noise: bool = False, add_block: bool = False,
+                   add_jpeg: bool = False, dilate_psf: bool = False):
+    """The eval step ``(model, batch, generator=None) -> (Detections,
+    gt_boxes)`` for ``model`` at the model bucket ``bucket``: the batch
+    moves to the model's device, goes through ``prepare_eval_batch`` and
+    ``model.predict``; ``gt_boxes`` are the (expanded) GT boxes. The
+    first two run in the profiler ranges ``eval.to_device`` and
+    ``eval.blur_expand``. ``generator`` is the randomness of the
+    eval-time corruptions, which are not ported: no option this step
+    takes draws from it."""
+    _refuse(use_warp=use_warp, use_custom_norm=use_custom_norm,
+            deblur_first=deblur_first, add_noise=add_noise,
+            add_block=add_block, add_jpeg=add_jpeg, dilate_psf=dilate_psf)
+
+    @torch.no_grad()
+    def step(model_, batch: BlurBatch,
+             generator: Optional[torch.Generator] = None):
+        if model_ is not model:
+            raise ValueError("the step was made for another model")
+        with record_function("eval.to_device"):
+            batch = to_device(batch, model.device)
+        with record_function("eval.blur_expand"):
+            batch = prepare_eval_batch(
+                batch, blur_eval=blur_eval,
+                expand_target_boxes=expand_target_boxes,
+                precision=model.cfg.precision)
+        dets = model.predict(batch.images, batch.hw, bucket)
+        return dets, batch.gt_boxes
 
     return step

@@ -1,8 +1,17 @@
-"""Map a JAX-layout Faster R-CNN param tree onto the port's state dict.
+"""Carry Faster R-CNN weights into the port's state dict.
 
-The input is the tree ``detectinblur_tpu``'s ``FasterRCNN.init`` or its
-torchvision converter produces (top-level keys ``backbone`` / ``rpn_head``
-/ ``box_head`` / ``box_predictor``), with numpy leaves. The port's modules
+``params_from_torchvision`` maps a torchvision ``fasterrcnn_resnet50_fpn``
+state dict (a released ``.pth``, or the reference's ``{model: ...}``
+checkpoint read by ``load_torch_state_dict``) straight onto the port, as
+``detectinblur_tpu/utils/torch_convert.py:73`` maps it onto the JAX tree:
+FrozenBatchNorm folded into (scale, bias) with eps 0 as ``_fold_frozen_bn``
+(:45) does, and both torchvision key spellings (``inner_blocks.0`` /
+``inner_blocks.0.0``, ``rpn.head.conv`` / ``rpn.head.conv.0.0``) accepted.
+
+``params_from_jax`` maps the tree that ``detectinblur_tpu``'s
+``FasterRCNN.init`` or its torchvision converter produces (top-level keys
+``backbone`` / ``rpn_head`` / ``box_head`` / ``box_predictor``), with
+numpy leaves. The port's modules
 are named after that tree, so each leaf maps by its path:
 
   * conv ``kernel`` HWIO -> ``weight`` OIHW,
@@ -15,10 +24,13 @@ missing key, an extra key or a wrong shape raises.
 
 from __future__ import annotations
 
+import argparse
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+RESNET50_LAYERS = (3, 4, 6, 3)
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -56,15 +68,8 @@ def expected_shapes(num_classes: int = 91) -> Dict[str, torch.Size]:
     return {k: v.shape for k, v in model.state_dict().items()}
 
 
-def params_from_jax(tree: Mapping, num_classes: int = 91
-                    ) -> Dict[str, torch.Tensor]:
-    """JAX param tree (numpy leaves) -> float32 state dict for the port's
-    ``FasterRCNN``. Raises ``KeyError`` on missing or extra keys and
-    ``ValueError`` on a shape mismatch."""
-    sd = {}
-    for key, value in _flatten(tree).items():
-        name, arr = _leaf(key, value)
-        sd[name] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+def _checked(sd: Dict[str, torch.Tensor], num_classes: int
+             ) -> Dict[str, torch.Tensor]:
     want = expected_shapes(num_classes)
     missing = sorted(set(want) - set(sd))
     extra = sorted(set(sd) - set(want))
@@ -76,3 +81,94 @@ def params_from_jax(tree: Mapping, num_classes: int = 91
     if bad:
         raise ValueError(f"shape mismatches: {bad[:5]}")
     return sd
+
+
+def params_from_jax(tree: Mapping, num_classes: int = 91
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX param tree (numpy leaves) -> float32 state dict for the port's
+    ``FasterRCNN``. Raises ``KeyError`` on missing or extra keys and
+    ``ValueError`` on a shape mismatch."""
+    sd = {}
+    for key, value in _flatten(tree).items():
+        name, arr = _leaf(key, value)
+        sd[name] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+    return _checked(sd, num_classes)
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch ``.pth`` as a state dict of CPU tensors: a bare state dict,
+    or the reference's checkpoint ``{model, optimizer, lr_scheduler, args,
+    epoch}`` (train.py:332-339), whose ``model`` entry is taken. Read with
+    ``weights_only=True``; the reference's ``args`` namespace is the one
+    class allowed besides tensors and containers."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "model" in obj:
+        obj = obj["model"]
+    return {k: v.detach().cpu() for k, v in obj.items()}
+
+
+def params_from_torchvision(sd: Mapping, num_classes: int = 91
+                            ) -> Dict[str, torch.Tensor]:
+    """A torchvision ``fasterrcnn_resnet50_fpn`` state dict (tensors or
+    numpy arrays) -> float32 state dict for the port's ``FasterRCNN``.
+    Raises ``KeyError`` on a missing key or one left unused, and
+    ``ValueError`` on a shape mismatch. The FrozenBN fold is computed in
+    numpy float32 as the JAX converter computes it, so both packages get
+    the same bits."""
+    src = {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
+                         else v) for k, v in sd.items()}
+    used = set()
+
+    def get(*names):
+        for n in names:
+            if n in src:
+                used.add(n)
+                return src[n]
+        raise KeyError(f"none of {names} in the state dict")
+
+    out: Dict[str, np.ndarray] = {}
+
+    def fold(dst, prefix):
+        gamma, beta, mean, var = (get(f"{prefix}.{k}") for k in (
+            "weight", "bias", "running_mean", "running_var"))
+        scale = gamma / np.sqrt(var + 0.0)
+        out[f"{dst}.scale"] = scale
+        out[f"{dst}.bias"] = beta - mean * scale
+
+    def copy(dst, *names):
+        out[dst] = get(*names)
+
+    body = "backbone.body"
+    copy(f"{body}.conv1.weight", f"{body}.conv1.weight")
+    fold(f"{body}.bn1", f"{body}.bn1")
+    for li, n_blocks in enumerate(RESNET50_LAYERS, start=1):
+        for b in range(n_blocks):
+            p, q = f"{body}.layer{li}_{b}", f"{body}.layer{li}.{b}"
+            for c in (1, 2, 3):
+                copy(f"{p}.conv{c}.weight", f"{q}.conv{c}.weight")
+                fold(f"{p}.bn{c}", f"{q}.bn{c}")
+            if f"{q}.downsample.0.weight" in src:
+                copy(f"{p}.downsample_0.weight", f"{q}.downsample.0.weight")
+                fold(f"{p}.downsample_1", f"{q}.downsample.1")
+    for i in range(4):
+        for ours, theirs in (("inner", "inner_blocks"), ("layer", "layer_blocks")):
+            for k in ("weight", "bias"):
+                copy(f"backbone.fpn.{ours}_{i}.{k}",
+                     f"backbone.fpn.{theirs}.{i}.{k}",
+                     f"backbone.fpn.{theirs}.{i}.0.{k}")
+    for k in ("weight", "bias"):
+        copy(f"rpn_head.conv.{k}", f"rpn.head.conv.{k}",
+             f"rpn.head.conv.0.0.{k}")
+        for head in ("cls_logits", "bbox_pred"):
+            copy(f"rpn_head.{head}.{k}", f"rpn.head.{head}.{k}")
+        for fc in ("fc6", "fc7"):
+            copy(f"box_head.{fc}.{k}", f"roi_heads.box_head.{fc}.{k}")
+        for head in ("cls_score", "bbox_pred"):
+            copy(f"box_predictor.{head}.{k}",
+                 f"roi_heads.box_predictor.{head}.{k}")
+    unused = sorted(set(src) - used)
+    if unused:
+        raise KeyError(f"state dict keys left unused: {unused[:5]}")
+    return _checked({k: torch.from_numpy(np.array(v, np.float32, order="C"))
+                     for k, v in out.items()}, num_classes)

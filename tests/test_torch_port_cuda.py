@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on a card.
+"""The port's CUDA kernels against their plain torch versions, and its
+evaluation CLI, on a card.
 
 These tests import neither JAX nor the JAX package, so they run on the
 GPU machine, which has no JAX:
@@ -189,3 +190,21 @@ def test_stress_rois_reach_the_separable_limits():
                  & (geom.y_w[3, :, 0] != 0)).any())
     stacked = torch.stack([geom.y_idx[4:], geom.x_idx[4:]])
     assert bool((stacked == stacked[:, :1]).all())
+
+
+@pytest.mark.gpu
+def test_evaluate_cli_on_the_card(cuda, tmp_path):
+    """The port's cli.evaluate on a small synthetic COCO, on the card
+    (its default device): 19 stats, and roi_align_fwd launched once per
+    image."""
+    from synthetic_coco import write_coco
+
+    import detectinblur_tpu_torch.cli.evaluate as cli_eval
+
+    root = write_coco(str(tmp_path), {"val2017": [(120, 160), (160, 120),
+                                                  (100, 150)]}, seed=0)
+    before = roi_align_cuda.roi_align_fwd.launches
+    stats = cli_eval.main(["--data-path", root, "--vanilla_eval"])
+    torch.cuda.synchronize()
+    assert roi_align_cuda.roi_align_fwd.launches == before + 3
+    assert stats.shape == (19,) and np.isfinite(stats).all()
