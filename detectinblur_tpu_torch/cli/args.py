@@ -10,6 +10,7 @@ was set: no flag is silently ignored.
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
 # dest -> what the port supports; any other value raises.
 _SUPPORTED = {
@@ -18,13 +19,9 @@ _SUPPORTED = {
 }
 # Flags whose every non-default value raises.
 UNPORTED = (
-    "warp_in_model", "use_custom_image_norm", "unfrozen_batch_norm",
-    "mode_one_norm", "deblur_first", "deblurer_model_location",
+    "deblur_first", "deblurer_model_location",
     "use_ensemble", "ensemble_model_paths", "blur_estimator_path", "LEHE",
-    "blurred_dataset", "expand_synth_boxes", "dilate_psf",
-    "add_noise", "add_block", "add_jpeg_artefacts",
-    "non_pos_aug_mix", "include_pos_aug_mix", "aug_mix_target_expand",
-    "image_output_dir",
+    "blurred_dataset", "expand_synth_boxes", "image_output_dir",
 )
 
 
@@ -129,6 +126,15 @@ def eval_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode_one_norm", action="store_true")
     p.add_argument("--vanilla_eval", action="store_true")
     return p
+
+
+def bn_mode_for(args) -> Optional[str]:
+    """The backbone's BatchNorm mode the flags ask for: ``mode_one`` for
+    --mode_one_norm (evaluation), ``train`` for --unfrozen_batch_norm,
+    else None (FrozenBatchNorm)."""
+    if getattr(args, "mode_one_norm", False):
+        return "mode_one"
+    return "train" if getattr(args, "unfrozen_batch_norm", False) else None
 
 
 def refuse_unported(parser: argparse.ArgumentParser,

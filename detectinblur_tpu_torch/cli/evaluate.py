@@ -9,9 +9,13 @@ reference): one clean COCO val eval (``--vanilla_eval``, or without
 EVAL_FRACTIONS[1:] with every image blurred (evaluate.py:299-370), from a
 generated or a stored PSF bank, optionally with the expanded-GT rewrite
 (``--expand_target_boxes``). Each eval is batch 1 with the image's own
-model bucket. Remedy flags (warp, custom norm, BatchNorm modes,
-deblur-first, ensembles, natural-blur datasets, corruptions, PSF
-dilation) raise ``NotImplementedError``.
+model bucket. The in-detector remedies follow their flags:
+``--warp_in_model``, ``--use_custom_image_norm``, ``--mode_one_norm`` and
+``--unfrozen_batch_norm`` (the backbone's BatchNorms in ``mode_one`` or
+``train`` mode), ``--dilate_psf`` and the corruptions ``--add_noise``,
+``--add_block`` and ``--add_jpeg_artefacts``, their draws from a
+generator seeded per iteration by the eval loop. Deblur-first, ensembles
+and natural-blur datasets raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,12 +52,18 @@ from detectinblur_tpu_torch.utils.logging import ScalarWriter
 def load_params(model, path: str):
     """Weights into ``model``: a ``.pth`` holds torchvision (or reference
     checkpoint) weights, anything else is the port's own checkpoint or a
-    bare state dict of the port."""
+    bare state dict of the port. A ``bn_mode`` model takes a ``.pth``'s
+    BatchNorms unfolded, ``num_batches_tracked`` set to 16 as the
+    reference's evaluate.py:234-237 sets it; the port's own checkpoint
+    keeps the statistics and count it was saved with, or, if it holds none
+    (a FrozenBatchNorm model wrote it), the model's fresh ones."""
+    bn = model.cfg.bn_mode is not None
     if path.endswith(".pth"):
         model.load_state_dict(params_from_torchvision(
-            load_torch_state_dict(path), model.cfg.num_classes))
+            load_torch_state_dict(path), model.cfg.num_classes,
+            frozen_bn=not bn, num_batches=16.0))
         return model
-    return restore_weights(path, model)
+    return restore_weights(path, model, fresh_bn_stats=bn)
 
 
 def run_cell(args, model, dataset_val, policy: BlurPolicy, psf_bank,
@@ -71,13 +81,18 @@ def run_cell(args, model, dataset_val, policy: BlurPolicy, psf_bank,
     eval_steps = step_cache if step_cache is not None else {}
     met = set()
 
-    def eval_step(m, batch):
+    def eval_step(m, batch, generator):
         b = model_bucket_for_batch(batch.hw)
         met.add(b)
         if b not in eval_steps:
-            eval_steps[b] = make_eval_step(model, b, blur_eval=blur,
-                                           expand_target_boxes=expand)
-        return eval_steps[b](m, batch)
+            eval_steps[b] = make_eval_step(
+                model, b, blur_eval=blur, expand_target_boxes=expand,
+                use_warp=args.warp_in_model,
+                use_custom_norm=args.use_custom_image_norm,
+                add_noise=args.add_noise, noise_level=args.noise_level,
+                add_block=args.add_block, add_jpeg=args.add_jpeg_artefacts,
+                dilate_psf=args.dilate_psf)
+        return eval_steps[b](m, batch, generator)
 
     stats, _ = evaluate_coco(eval_step, model, loader, dataset_val.index,
                              expand_target_boxes=expand,

@@ -4,13 +4,17 @@
         --blur_train --expand_target_boxes [--device cpu]
 
 Port of ``detectinblur_tpu/cli/train.py`` (train.py:89-391 of the
-reference), in one process: COCO train split -> loader (hflip 0.5, blur
-decisions) -> PSF bank (generated on the card, or stored) -> per-batch
-train steps (blur, GT expansion, loss, backward, SGD), the non-finite
-loss guard, a checkpoint each epoch and a clean plus a blurred COCO eval
-after it (``--eval_first`` also before training). Flags the port does not
-have yet raise ``NotImplementedError`` (``cli/args.py``); DDP training
-(``--world-size`` > 1) is among them.
+reference), in one process: COCO train split -> loader (AugMix, hflip
+0.5, blur decisions) -> PSF bank (generated on the card, or stored) ->
+per-batch train steps (blur, corruptions, GT expansion, loss, backward,
+SGD), the non-finite loss guard, a checkpoint each epoch and a clean plus
+a blurred COCO eval after it (``--eval_first`` also before training).
+The in-detector remedies follow their flags: ``--warp_in_model``,
+``--use_custom_image_norm``, ``--unfrozen_batch_norm`` (the backbone's
+BatchNorms in ``train`` mode, also in the evals), ``--add_noise``,
+``--add_block``, ``--add_jpeg_artefacts`` and the AugMix flags. Flags the
+port does not have yet raise ``NotImplementedError`` (``cli/args.py``);
+DDP training (``--world-size`` > 1) is among them.
 """
 
 from __future__ import annotations
@@ -23,7 +27,11 @@ from typing import Dict, List, NamedTuple
 import numpy as np
 import torch
 
-from detectinblur_tpu_torch.cli.args import refuse_unported, train_parser
+from detectinblur_tpu_torch.cli.args import (
+    bn_mode_for,
+    refuse_unported,
+    train_parser,
+)
 from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
 from detectinblur_tpu_torch.data.blur_sampling import (
     BlurPolicy,
@@ -64,15 +72,22 @@ class TrainRun(NamedTuple):
 
 def build_model(args, device) -> FasterRCNN:
     """Faster R-CNN ResNet50-FPN with COCO's 91 classes on ``device``
-    (``--model`` and ``--dataset`` take no other value yet)."""
-    return FasterRCNN(FasterRCNNConfig(num_classes=91), device=device)
+    (``--model`` and ``--dataset`` take no other value yet), warping
+    inside with ``--warp_in_model``, its BatchNorms in the mode the flags
+    ask for (``bn_mode_for``)."""
+    return FasterRCNN(FasterRCNNConfig(
+        num_classes=91, warp_internally=args.warp_in_model,
+        bn_mode=bn_mode_for(args)), device=device)
 
 
 def load_initial_params(args, model: FasterRCNN) -> FasterRCNN:
     """``--pretrained`` or a ``.pth`` ``--start_from_weights``: torchvision
     detector weights into ``model``. Only ``--pretrained``'s default file
     (``{output_dir}/fasterrcnn_resnet50_fpn_coco.pth``) may be missing;
-    then training starts from scratch."""
+    then training starts from scratch. A ``bn_mode`` model takes the
+    BatchNorms unfolded (gamma, beta and the running statistics of the
+    file), where the JAX package folds them and starts from fresh
+    statistics (ROADMAP, Queue 3)."""
     if not (args.pretrained or args.start_from_weights.endswith(".pth")):
         return model
     path = args.start_from_weights or os.path.join(
@@ -80,8 +95,9 @@ def load_initial_params(args, model: FasterRCNN) -> FasterRCNN:
     if not args.start_from_weights and not os.path.exists(path):
         print(f"pretrained weights not found at {path}; training from scratch")
         return model
-    model.load_state_dict(params_from_torchvision(load_torch_state_dict(path),
-                                                  model.cfg.num_classes))
+    model.load_state_dict(params_from_torchvision(
+        load_torch_state_dict(path), model.cfg.num_classes,
+        frozen_bn=model.cfg.bn_mode is None))
     print(f"loaded torch weights from {path}")
     return model
 
@@ -122,10 +138,15 @@ def main(argv=None) -> TrainRun:
             print(f"PSF bank {psf_bank.shape} generated on {device} in "
                   f"{time.perf_counter() - t0:.3f} s")
 
+    augmix = None
+    if args.non_pos_aug_mix or args.include_pos_aug_mix:
+        augmix = dict(positional=args.include_pos_aug_mix,
+                      modify_target_boxes=args.aug_mix_target_expand)
     loader = DetectionLoader(
         dataset, args.batch_size, policy, psf_bank, shuffle=True,
         hflip_prob=0.5, num_processes=process_count(),
-        process_index=process_index(), num_workers=args.workers)
+        process_index=process_index(), augmix=augmix,
+        num_workers=args.workers)
 
     model = load_initial_params(args, build_model(args, device))
     optimizer, schedule = make_optimizer(
@@ -148,7 +169,11 @@ def main(argv=None) -> TrainRun:
         if b not in steps:
             steps[b] = make_train_step(
                 model, schedule, b, blur_train=args.blur_train,
-                expand_target_boxes=args.expand_target_boxes)
+                expand_target_boxes=args.expand_target_boxes,
+                use_warp=args.warp_in_model,
+                use_custom_norm=args.use_custom_image_norm,
+                add_noise=args.add_noise, noise_level=args.noise_level,
+                add_block=args.add_block, add_jpeg=args.add_jpeg_artefacts)
         return steps[b]
 
     writer = ScalarWriter(args.tensorboard_path)
@@ -167,13 +192,15 @@ def main(argv=None) -> TrainRun:
                 num_processes=process_count(), process_index=process_index(),
                 drop_last=False, num_workers=args.workers)
 
-            def eval_step(m, batch, _blur=blur):
+            def eval_step(m, batch, generator, _blur=blur):
                 b = (_blur, model_bucket_for_batch(batch.hw))
                 if b not in eval_steps:
                     eval_steps[b] = make_eval_step(
                         model, b[1], blur_eval=_blur,
-                        expand_target_boxes=args.expand_target_boxes and _blur)
-                return eval_steps[b](m, batch)
+                        expand_target_boxes=args.expand_target_boxes and _blur,
+                        use_warp=args.warp_in_model,
+                        use_custom_norm=args.use_custom_image_norm)
+                return eval_steps[b](m, batch, generator)
 
             stats, _ = evaluate_coco(
                 eval_step, model, val_loader, dataset_val.index,

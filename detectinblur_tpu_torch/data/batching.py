@@ -3,7 +3,8 @@
 Port of ``detectinblur_tpu/data/batching.py``: images are grouped by
 orientation into a few source buckets, padded top-left with zeros and
 emitted as a ``BlurBatch`` of CPU tensors (uint8 images; the step moves
-the batch to the model's device and rescales there). Each batch also gets
+the batch to the model's device and rescales there), with each blurred
+image's (blur type, exposure) indices for the blur-conditional norms. Each batch also gets
 its model bucket (``model_bucket_for_batch``, the torch-exact resized
 extent rounded up to 64) and a GT-slot count from ``GT_BUCKETS``.
 Horizontal flipping happens here, before box padding.
@@ -106,6 +107,8 @@ def build_blur_batch(
     hw = np.zeros((B, 2), np.int32)
     psfs = np.zeros((B, 128, 128), np.float32)
     blurring = np.zeros(B, bool)
+    param_index = np.full(B, -1, np.int32)
+    fraction_index = np.full(B, -1, np.int32)
     gt_boxes = np.zeros((B, max_gt, 4), np.float32)
     gt_labels = np.zeros((B, max_gt), np.int64)
     gt_valid = np.zeros((B, max_gt), bool)
@@ -127,8 +130,14 @@ def build_blur_batch(
         gt_valid[i, :n] = True
         if dec.blurring and dec.fraction_index >= 0 and psf_bank is not None:
             blurring[i] = True
+            param_index[i] = dec.param_index
+            fraction_index[i] = dec.fraction_index
             psfs[i] = psf_bank[dec.param_index, dec.fraction_index,
                                dec.psf_index % psf_bank.shape[2]]
 
+    # The warp parameters are the identity until the step derives them
+    # from the (blurred) PSFs.
     return BlurBatch(*(torch.from_numpy(a) for a in (
-        images, hw, psfs, blurring, gt_boxes, gt_labels, gt_valid)))
+        images, hw, psfs, blurring, gt_boxes, gt_labels, gt_valid,
+        np.zeros(B, np.float32), np.ones(B, np.float32),
+        np.ones(B, np.float32), param_index, fraction_index)))

@@ -6,14 +6,13 @@ wrap-around, a per-epoch reshuffle (``set_epoch``), orientation
 bucketing, ``num_workers`` decode threads and a background thread that
 assembles fixed-shape ``BlurBatch`` structs.
 
-Per-item randomness (hflip, blur decision) comes from an RNG keyed on
-(seed, epoch, process, position in the epoch), so batches are identical
-for any worker count and to the JAX loader's.
+Per-item randomness (AugMix, hflip, blur decision) comes from an RNG keyed
+on (seed, epoch, process, position in the epoch), so batches are
+identical for any worker count and to the JAX loader's.
 
 Two differences from the JAX loader: an exception raised while a batch is
 made reaches the consumer (there the iteration just ends early), and a
 consumer that stops early (``--early_stop``) stops the background thread.
-AugMix is not ported; ``augmix=`` raises.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from detectinblur_tpu_torch.data import batching
+from detectinblur_tpu_torch.data.augmix import augment_and_mix
 from detectinblur_tpu_torch.data.blur_sampling import (
     BlurDecision,
     BlurPolicy,
@@ -54,8 +54,9 @@ class DetectionLoader:
         augmix: Optional[dict] = None,
         num_workers: int = 0,
     ):
-        if augmix is not None:
-            raise NotImplementedError("not ported yet: augmix")
+        """``augmix``: keyword arguments of ``data.augmix.augment_and_mix``
+        (``positional``, ``modify_target_boxes``), the --non_pos_aug_mix /
+        --include_pos_aug_mix / --aug_mix_target_expand flags."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.policy = policy or BlurPolicy(prob=0.0)
@@ -71,6 +72,7 @@ class DetectionLoader:
         self.process_index = process_index
         self.prefetch = prefetch
         self.drop_last = drop_last
+        self.augmix = augmix
         self.num_workers = num_workers
         self.epoch = 0
 
@@ -104,6 +106,11 @@ class DetectionLoader:
             [abs(self.seed + self.epoch), self.process_index, pos])
         bank_size = self.psf_bank.shape[2] if self.psf_bank is not None else 1
         item = self.dataset[int(index)]
+        if self.augmix is not None:
+            mixed, boxes = augment_and_mix(item["image"], rng,
+                                           boxes=item["boxes"], **self.augmix)
+            item = dict(item, image=mixed,
+                        boxes=boxes if boxes is not None else item["boxes"])
         if self.hflip_prob > 0 and rng.random() < self.hflip_prob:
             item = batching.hflip_item(item)
         h, w = item["image"].shape[:2]

@@ -13,13 +13,14 @@ row and column one pixel outward (``resize_valid`` :57-60) because its
 bucket holds zeros there; interpolating only the valid crop clamps at its
 edge, which is the same thing.
 
-The per-image mean/std overrides (blur-conditional normalization),
+Per-image means and stds [B, 3] (the blur-conditional normalization of
+``ops/normalization.py``) replace the ImageNet constants when given.
 ``normalize=False`` and ``crop_images=True`` are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,10 +62,13 @@ def resized_valid_hw(hw, out_shape: Tuple[int, int], min_size: int = 800,
     return np.asarray(out, np.int64)
 
 
-def normalize_image(image: torch.Tensor) -> torch.Tensor:
-    """ImageNet (image - mean) / std over the trailing channel axis."""
-    mean = torch.tensor(IMAGENET_MEAN, device=image.device)
-    std = torch.tensor(IMAGENET_STD, device=image.device)
+def normalize_image(image: torch.Tensor, mean=None, std=None) -> torch.Tensor:
+    """(image - mean) / std over the trailing channel axis, ImageNet's
+    statistics unless ``mean`` and ``std`` [3] are given."""
+    mean = torch.as_tensor(IMAGENET_MEAN if mean is None else mean,
+                           dtype=torch.float32, device=image.device)
+    std = torch.as_tensor(IMAGENET_STD if std is None else std,
+                          dtype=torch.float32, device=image.device)
     return (image - mean) / std
 
 
@@ -85,8 +89,11 @@ def preprocess_batch(
     out_shape: Tuple[int, int],
     min_size: int = 800,
     max_size: int = 1333,
+    means: Optional[torch.Tensor] = None,   # [B, 3] per-image overrides
+    stds: Optional[torch.Tensor] = None,
 ):
-    """Batched normalize + resize into the model bucket.
+    """Batched normalize + resize into the model bucket, each image
+    normalized with its row of ``means`` and ``stds`` when given.
 
     Returns (batched [B, Ho, Wo, 3] float32, new_hw [B, 2] int64 on the
     images' device).
@@ -100,7 +107,9 @@ def preprocess_batch(
     for b in range(B):
         h, w = (int(v) for v in hw_np[b])
         nh, nw = (int(v) for v in new_hw[b])
-        img = normalize_image(images[b, :h, :w].float())
+        img = normalize_image(images[b, :h, :w].float(),
+                              None if means is None else means[b],
+                              None if stds is None else stds[b])
         resized = F.interpolate(img.permute(2, 0, 1)[None], size=(nh, nw),
                                 mode="bilinear", align_corners=False)
         out[b, :nh, :nw] = resized[0].permute(1, 2, 0)

@@ -25,12 +25,22 @@ JAX version vmaps.
 Precision is a config field (``utils/device.py``): ``highest`` keeps every
 activation in float32 with TF32 off; ``default`` computes the backbone and
 heads in bfloat16. Parameters are float32 in both (each layer casts its
-weights to its input's dtype). The Squint warp, the per-image
-normalization overrides and the BatchNorm remedies are not ported yet.
+weights to its input's dtype).
+
+The paper's in-detector remedies are config fields and arguments, as in
+JAX: ``warp_internally`` warps the preprocessed images with each image's
+(theta, lambda1, lambda2) before the backbone and every FPN level back
+with (theta, 1/lambda1, 1/lambda2) after it (``_features`` :146-171);
+``bn_mode`` makes the backbone's BatchNorms ``AdaptiveBatchNorm``s in that
+mode; ``means`` / ``stds`` normalize each image with its own statistics.
+``loss`` writes the running-statistics update of the ``train`` and
+``acclimation`` modes into the BatchNorm buffers; ``predict`` normalizes
+as the mode says and writes nothing, as JAX drops the update there.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -58,6 +68,7 @@ from detectinblur_tpu_torch.models.rpn import (
     run_rpn,
 )
 from detectinblur_tpu_torch.ops.roi_align_cuda import multiscale_roi_align_cuda
+from detectinblur_tpu_torch.ops.warp import squint_warp
 from detectinblur_tpu_torch.utils.device import (
     DEFAULT_PRECISION,
     act_dtype,
@@ -74,6 +85,10 @@ class FasterRCNNConfig(NamedTuple):
     rpn: RPNConfig = RPNConfig()
     box: BoxHeadConfig = BoxHeadConfig()
     precision: str = DEFAULT_PRECISION
+    warp_internally: bool = False
+    # None = FrozenBatchNorm; else the AdaptiveBatchNorm mode (train, eval,
+    # acclimation, mode_one) of every BatchNorm in the backbone.
+    bn_mode: Optional[str] = None
 
 
 class Detections(NamedTuple):
@@ -89,6 +104,18 @@ class LossDraws(NamedTuple):
     u_neg), each [B, P + G] (P the train post-NMS proposal count)."""
     rpn: Tuple[torch.Tensor, torch.Tensor]
     roi: Tuple[torch.Tensor, torch.Tensor]
+
+
+@contextlib.contextmanager
+def _training(module: nn.Module):
+    """``module`` in training mode while open: its BatchNorms write their
+    running-statistics updates."""
+    was = module.training
+    module.train(True)
+    try:
+        yield
+    finally:
+        module.train(was)
 
 
 class FasterRCNN(nn.Module):
@@ -112,7 +139,8 @@ class FasterRCNN(nn.Module):
         # the seeded initialisation, so the weights do not depend on the
         # device.
         with torch.device("meta" if device.type == "meta" else "cpu"):
-            self.backbone = ResNetFPN(act_dtype=act_dtype(config.precision))
+            self.backbone = ResNetFPN(act_dtype=act_dtype(config.precision),
+                                      bn_mode=config.bn_mode)
             self.rpn_head = RPNHead()
             self.box_head = TwoMLPHead()
             self.box_predictor = FastRCNNPredictor(
@@ -140,14 +168,28 @@ class FasterRCNN(nn.Module):
         return self.rpn_head.conv.weight.device
 
     # ------------------------------------------------------------- stages
-    def preprocess(self, images: torch.Tensor, hw, bucket: Tuple[int, int]):
+    def preprocess(self, images: torch.Tensor, hw, bucket: Tuple[int, int],
+                   means: Optional[torch.Tensor] = None,
+                   stds: Optional[torch.Tensor] = None):
         """-> (batched [B, Ho, Wo, 3] float32, new_hw [B, 2])."""
         return preprocess_batch(images, hw, bucket, self.cfg.min_size,
-                                self.cfg.max_size)
+                                self.cfg.max_size, means=means, stds=stds)
 
-    def features(self, batched: torch.Tensor):
-        """-> (P2, P3, P4, P5, P6) NHWC in the activation dtype."""
-        return self.backbone(batched)
+    def features(self, batched: torch.Tensor,
+                 thetas: Optional[torch.Tensor] = None,
+                 lam1s: Optional[torch.Tensor] = None,
+                 lam2s: Optional[torch.Tensor] = None):
+        """-> (P2, P3, P4, P5, P6) NHWC in the activation dtype; with
+        ``warp_internally``, the images warped by (``thetas``, ``lam1s``,
+        ``lam2s``) [B] first and each level warped back after."""
+        if not self.cfg.warp_internally:
+            return self.backbone(batched)
+        if thetas is None or lam1s is None or lam2s is None:
+            raise ValueError("a warp_internally model needs thetas, lam1s "
+                             "and lam2s")
+        t, l1, l2 = (x.to(batched.device) for x in (thetas, lam1s, lam2s))
+        feats = self.backbone(squint_warp(batched, t, l1, l2))
+        return tuple(squint_warp(f, t, 1.0 / l1, 1.0 / l2) for f in feats)
 
     def level_anchors(self, feats):
         """``rpn.level_anchors`` for these feature shapes, cached."""
@@ -189,16 +231,22 @@ class FasterRCNN(nn.Module):
 
     # ---------------------------------------------------------- inference
     @torch.no_grad()
-    def predict(self, images: torch.Tensor, hw,
-                bucket: Tuple[int, int]) -> Detections:
+    def predict(self, images: torch.Tensor, hw, bucket: Tuple[int, int],
+                means: Optional[torch.Tensor] = None,
+                stds: Optional[torch.Tensor] = None,
+                thetas: Optional[torch.Tensor] = None,
+                lam1s: Optional[torch.Tensor] = None,
+                lam2s: Optional[torch.Tensor] = None) -> Detections:
         """images [B, Hb0, Wb0, 3] raw 0..1 with the valid region at the
         top-left, ``hw`` [B, 2] valid sizes (a host array), ``bucket`` the
-        static model bucket -> fixed-size ``Detections``."""
+        static model bucket -> fixed-size ``Detections``. ``means`` /
+        ``stds`` [B, 3] and ``thetas``, ``lam1s``, ``lam2s`` [B] are the
+        remedies' per-image inputs."""
         with record_function("predict.preprocess"):
             batched, new_hw = self.preprocess(images.to(self.device), hw,
-                                              bucket)
+                                              bucket, means, stds)
         with record_function("predict.backbone"):
-            feats = self.features(batched)
+            feats = self.features(batched, thetas, lam1s, lam2s)
         with record_function("predict.rpn"):
             proposals, valid = self.propose(feats, new_hw)
         with record_function("predict.roi_align"):
@@ -211,7 +259,13 @@ class FasterRCNN(nn.Module):
              gt_labels: torch.Tensor, gt_valid: torch.Tensor,
              bucket: Tuple[int, int],
              generator: Optional[torch.Generator] = None,
-             draws: Optional[LossDraws] = None) -> Dict[str, torch.Tensor]:
+             draws: Optional[LossDraws] = None,
+             means: Optional[torch.Tensor] = None,
+             stds: Optional[torch.Tensor] = None,
+             thetas: Optional[torch.Tensor] = None,
+             lam1s: Optional[torch.Tensor] = None,
+             lam2s: Optional[torch.Tensor] = None
+             ) -> Dict[str, torch.Tensor]:
         """The four torchvision training losses of a batch, with a graph
         back to the parameters.
 
@@ -220,17 +274,21 @@ class FasterRCNN(nn.Module):
         ``gt_valid`` [B, G]. The samplers draw from ``generator`` (on the
         model's device) or take ``draws``. Normalized as the JAX version
         (and torchvision): RPN sums over the batch's sampled anchors, head
-        sums over its sampled rois."""
+        sums over its sampled rois. ``means``, ``stds`` and the warp's as in
+        ``predict``; the BatchNorms of the ``train`` and ``acclimation``
+        modes update their running statistics."""
         cfg = self.cfg
         device = self.device
         B = images.shape[0]
-        batched, new_hw = self.preprocess(images.to(device), hw, bucket)
+        batched, new_hw = self.preprocess(images.to(device), hw, bucket,
+                                          means, stds)
         gt = resize_boxes(gt_boxes.to(device).float(),
                           torch.as_tensor(hw, device=device), new_hw)
         gt_labels = gt_labels.to(device)
         gt_valid = gt_valid.to(device).bool()
 
-        feats = self.features(batched)
+        with _training(self.backbone):
+            feats = self.features(batched, thetas, lam1s, lam2s)
         rpn = run_rpn(self.rpn_head, feats, new_hw, cfg.rpn,
                       anchors=self.level_anchors(feats), training=True)
         rpn_box, rpn_obj, rpn_n = rpn_loss(

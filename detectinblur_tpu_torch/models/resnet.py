@@ -7,7 +7,9 @@ a channels-last tensor, and so are all activations after it. The public
 boundary stays NHWC, as in the JAX package.
 
 FrozenBatchNorm is the affine (scale, bias) pair of the JAX version, kept
-as buffers; a fresh module is the identity.
+as buffers; a fresh module is the identity. With ``bn_mode`` set, the
+backbone's BatchNorms are ``models/batchnorm.AdaptiveBatchNorm`` in that
+mode instead (the JAX ``norm`` argument, :135,164,197,260).
 
 Parameters stay float32 in every precision; ``Conv2d`` and ``Linear`` cast
 their weights to the dtype of their input on each call, as the JAX modules'
@@ -22,11 +24,14 @@ FPN convs with zero bias.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from detectinblur_tpu_torch.models.batchnorm import AdaptiveBatchNorm
 
 RESNET50_LAYERS = (3, 4, 6, 3)
 _WIDTHS = (64, 128, 256, 512)
@@ -68,19 +73,20 @@ def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> Conv2d:
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, cin: int, width: int, stride: int = 1):
+    def __init__(self, cin: int, width: int, stride: int = 1,
+                 norm: Callable[[int], nn.Module] = FrozenBatchNorm):
         super().__init__()
         out_ch = width * self.expansion
         self.conv1 = _conv(cin, width, 1)
-        self.bn1 = FrozenBatchNorm(width)
+        self.bn1 = norm(width)
         self.conv2 = _conv(width, width, 3, stride)
-        self.bn2 = FrozenBatchNorm(width)
+        self.bn2 = norm(width)
         self.conv3 = _conv(width, out_ch, 1)
-        self.bn3 = FrozenBatchNorm(out_ch)
+        self.bn3 = norm(out_ch)
         self.downsample_0: Optional[Conv2d] = None
         if cin != out_ch or stride != 1:
             self.downsample_0 = _conv(cin, out_ch, 1, stride)
-            self.downsample_1 = FrozenBatchNorm(out_ch)
+            self.downsample_1 = norm(out_ch)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -96,17 +102,18 @@ class ResNet(nn.Module):
     """torchvision-layout ResNet50 trunk returning (C2, C3, C4, C5), NCHW
     channels-last."""
 
-    def __init__(self, layers: Sequence[int] = RESNET50_LAYERS):
+    def __init__(self, layers: Sequence[int] = RESNET50_LAYERS,
+                 norm: Callable[[int], nn.Module] = FrozenBatchNorm):
         super().__init__()
         self.layers = tuple(layers)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm(64)
+        self.bn1 = norm(64)
         cin = 64
         for i, (n_blocks, width) in enumerate(zip(self.layers, _WIDTHS)):
             for b in range(n_blocks):
                 stride = 2 if (b == 0 and i > 0) else 1
                 self.add_module(f"layer{i + 1}_{b}",
-                                Bottleneck(cin, width, stride))
+                                Bottleneck(cin, width, stride, norm))
                 cin = width * Bottleneck.expansion
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
@@ -148,13 +155,17 @@ class FPN(nn.Module):
 
 class ResNetFPN(nn.Module):
     """images NHWC [B, H, W, 3] -> (P2, P3, P4, P5, P6), each NHWC in
-    ``act_dtype``."""
+    ``act_dtype``. ``bn_mode`` None keeps FrozenBatchNorm; a mode of
+    ``AdaptiveBatchNorm`` makes every BatchNorm of the body one."""
 
     def __init__(self, out_channels: int = 256,
-                 act_dtype: torch.dtype = torch.float32):
+                 act_dtype: torch.dtype = torch.float32,
+                 bn_mode: Optional[str] = None):
         super().__init__()
         self.act_dtype = act_dtype
-        self.body = ResNet()
+        norm = (FrozenBatchNorm if bn_mode is None
+                else functools.partial(AdaptiveBatchNorm, mode=bn_mode))
+        self.body = ResNet(norm=norm)
         self.fpn = FPN(out_channels=out_channels)
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -174,6 +185,10 @@ class ResNetFPN(nn.Module):
                     nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                             nonlinearity="relu",
                                             generator=generator)
-            elif isinstance(m, FrozenBatchNorm):
+            elif isinstance(m, (FrozenBatchNorm, AdaptiveBatchNorm)):
                 m.scale.fill_(1.0)
                 m.bias.zero_()
+                if isinstance(m, AdaptiveBatchNorm):
+                    m.running_mean.zero_()
+                    m.running_var.fill_(1.0)
+                    m.num_batches_tracked.zero_()

@@ -1,8 +1,9 @@
 """PSF rasterization, centering and cropping, batched in torch.
 
 Port of ``detectinblur_tpu/ops/psf.py`` (``rasterize_psf`` :32,
-``center_psf`` :87, ``crop_center`` :168, ``sample_psf`` :179). Every
-function takes a leading batch dimension.
+``center_psf`` :87, ``psf_principal_components`` :135, ``crop_center``
+:168, ``sample_psf`` :179, ``dilate_psf`` :205). Every function takes a
+leading batch dimension.
 
 The splat is one ``index_put_(..., accumulate=True)``. On CUDA its atomics
 add in an order that changes from run to run, so a PSF's last bits vary
@@ -12,9 +13,10 @@ sits within float noise of an integer can move the PSF by one pixel.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from detectinblur_tpu_torch.ops.trajectory import (
     draw_trajectory_noise,
@@ -108,6 +110,84 @@ def center_psf(psf: torch.Tensor) -> torch.Tensor:
     cols = (idx[None, :] + off_x[:, None]) % n
     b = torch.arange(B, device=device)[:, None, None]
     return psf[b, rows[:, :, None], cols[:, None, :]]
+
+
+class PSFComponents(NamedTuple):
+    theta_rad: torch.Tensor              # [B]
+    scale_factor_lambda1: torch.Tensor   # [B]
+    scale_factor_lambda2: torch.Tensor   # [B]
+
+
+def psf_principal_components(psf: torch.Tensor) -> PSFComponents:
+    """The Squint warp parameters of PSFs [B, n, n]: the PCA of each PSF's
+    support (its nonzero pixels, unweighted). lambda1 >= lambda2 are the
+    eigenvalues of the support's 2x2 covariance, theta = -atan2(lambda1 -
+    var_x, -cov), and each scale factor is 1 - (sigmoid(sqrt(lambda) / 10)
+    - 0.5) * 0.6."""
+    n = psf.shape[-1]
+    mask = (psf > 0).float()
+    count = mask.sum(dim=(1, 2)).clamp(min=1.0)
+    coord = torch.arange(n, dtype=torch.float32, device=psf.device)
+    xs, ys = coord[None, None, :], coord[None, :, None]
+    mean_x = (xs * mask).sum(dim=(1, 2)) / count
+    mean_y = (ys * mask).sum(dim=(1, 2)) / count
+    dx = (xs - mean_x[:, None, None]) * mask
+    dy = (ys - mean_y[:, None, None]) * mask
+    var_x = (dx * dx).sum(dim=(1, 2)) / count
+    var_y = (dy * dy).sum(dim=(1, 2)) / count
+    cov = (dx * dy).sum(dim=(1, 2)) / count
+    mid = (var_x + var_y) / 2.0
+    root = torch.sqrt(((var_x - var_y) / 2.0) ** 2 + cov ** 2)
+    lam1, lam2 = mid + root, mid - root
+
+    def scale_factor(lam):
+        return 1.0 - (torch.sigmoid(torch.sqrt(lam.clamp(min=0.0)) / 10.0)
+                      - 0.5) * 0.6
+
+    theta = -torch.atan2(lam1 - var_x, -cov)
+    return PSFComponents(theta, scale_factor(lam1), scale_factor(lam2))
+
+
+def dilate_psf(psf: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Defocus dilation of PSFs [B, n, n] (``--dilate_psf``): each is
+    filtered by a separable Gaussian of radius 13 and standard deviation
+    ``sigma`` [B] (U(0, 3) in evaluation), rows then columns with zero
+    padding, then divided by its max. Float32 denormals are flushed to
+    zero at every product and sum, as XLA's CPU and the TPU flush them, so
+    the support that the GT expansion reads (the nonzero pixels) is the
+    JAX version's on every device."""
+    radius = 13
+    B, n, _ = psf.shape
+    xs = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                      device=psf.device)
+    s = sigma.to(torch.float32).clamp(min=1e-6)
+    k = torch.exp(-0.5 * (xs[None] / s[:, None]) ** 2)
+    k = k / k.sum(dim=1, keepdim=True)                     # [B, 27]
+    # One group per PSF: the images are the channels of a batch of one.
+    k = _flush(k)
+    out = _taps(psf, k, 1)
+    out = _taps(out, k, 2)
+    return _flush(out / out.amax(dim=(1, 2), keepdim=True).clamp(min=1e-20))
+
+
+def _taps(x: torch.Tensor, k: torch.Tensor, dim: int) -> torch.Tensor:
+    """The zero-padded correlation of ``x`` [B, n, n] along ``dim`` with
+    per-image taps ``k`` [B, 2r + 1], one shifted product per tap, each
+    product and partial sum with its denormals flushed."""
+    r = (k.shape[1] - 1) // 2
+    n = x.shape[dim]
+    pad = [0, 0, 0, 0]
+    pad[(2 - dim) * 2:(2 - dim) * 2 + 2] = [r, r]
+    xp = F.pad(x, pad)
+    out = torch.zeros_like(x)
+    for t in range(2 * r + 1):
+        out = _flush(out + _flush(k[:, t, None, None] * xp.narrow(dim, t, n)))
+    return out
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """float32 denormals to zero."""
+    return torch.where(x.abs() < torch.finfo(torch.float32).tiny, 0.0, x)
 
 
 def crop_center(psf: torch.Tensor, size: int) -> torch.Tensor:

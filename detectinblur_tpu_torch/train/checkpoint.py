@@ -27,6 +27,8 @@ from detectinblur_tpu_torch.parallel.dist import is_main_process
 from detectinblur_tpu_torch.train.state import TrainState
 
 FULL_KEYS = frozenset({"model", "optimizer", "step", "epoch"})
+# The running-statistics buffers of an AdaptiveBatchNorm.
+BN_STATS = ("running_mean", "running_var", "num_batches_tracked")
 
 
 def save_checkpoint(output_dir: str, state: TrainState, epoch: int,
@@ -103,12 +105,23 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     return TrainState(int(obj["step"]), state.model, state.optimizer)
 
 
-def restore_weights(path: str, model: nn.Module) -> nn.Module:
+def restore_weights(path: str, model: nn.Module,
+                    fresh_bn_stats: bool = False) -> nn.Module:
     """--start_from_weights: load the weights of a full checkpoint (its
     optimizer and step are left alone) or of a bare state dict into
-    ``model``."""
+    ``model``. With ``fresh_bn_stats``, a file that holds no BatchNorm
+    running statistics at all (one written by a FrozenBatchNorm model)
+    leaves ``model``'s own in place, as the JAX package's
+    ``restore_subtree`` falls back to its template; a file that holds
+    some of them must hold them all."""
     obj = _load(path)
-    _load_weights(model, obj["model"] if _is_full(obj) else obj)
+    sd = obj["model"] if _is_full(obj) else obj
+    if fresh_bn_stats and not any(k.rpartition(".")[2] in BN_STATS
+                                  for k in sd):
+        print(f"{path} holds no BatchNorm statistics; using the fresh ones")
+        sd = dict(sd, **{k: v for k, v in model.state_dict().items()
+                         if k.rpartition(".")[2] in BN_STATS})
+    _load_weights(model, sd)
     return model
 
 

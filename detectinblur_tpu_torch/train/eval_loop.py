@@ -25,7 +25,7 @@ import torch.distributed as dist
 
 from detectinblur_tpu_torch.eval.coco_eval import COCOEval, STAT_NAMES
 from detectinblur_tpu_torch.eval.coco_index import COCOIndex
-from detectinblur_tpu_torch.parallel.dist import process_count
+from detectinblur_tpu_torch.parallel.dist import process_count, process_index
 from detectinblur_tpu_torch.utils.metric_logger import MetricLogger
 
 
@@ -154,11 +154,16 @@ def evaluate_coco(
     print_freq: int = 100,
     early_stop: Optional[int] = None,
     header: str = "Test:",
+    seed: int = 1337,
 ) -> Tuple[np.ndarray, Dict]:
     """Run the loop; returns the 19-stat vector (``STAT_NAMES``, AP first)
     and the loop's measurements.
 
-    ``eval_step(model, batch)`` returns (Detections, GT boxes). The
+    ``eval_step(model, batch, generator)`` returns (Detections, GT boxes).
+    ``generator``, on the model's device, is seeded anew each iteration
+    from (``seed``, process index, iteration), the counterpart of JAX's
+    ``fold_in``: the eval-time dilation and corruptions draw fresh values
+    every step, and the whole eval stays deterministic. The
     measurements, also printed as one ``eval loop:`` line of JSON:
     images, detections collected, wall-clock seconds and images per
     second; on CUDA (``null`` elsewhere) the wall ms per image of the
@@ -185,7 +190,10 @@ def evaluate_coco(
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-        dets, expanded_gt = eval_step(model, batch)
+        generator = torch.Generator(device=model.device)
+        generator.manual_seed(int(np.random.SeedSequence(
+            [seed, process_index(), it]).generate_state(1)[0]))
+        dets, expanded_gt = eval_step(model, batch, generator)
         if on_cuda:
             ev[1].record()
             events.append(ev)

@@ -5,7 +5,10 @@ state dict (a released ``.pth``, or the reference's ``{model: ...}``
 checkpoint read by ``load_torch_state_dict``) straight onto the port, as
 ``detectinblur_tpu/utils/torch_convert.py:73`` maps it onto the JAX tree:
 FrozenBatchNorm folded into (scale, bias) with eps 0 as ``_fold_frozen_bn``
-(:45) does, and both torchvision key spellings (``inner_blocks.0`` /
+(:45) does, or, with ``frozen_bn=False``, the BatchNorm kept unfolded for a
+``bn_mode`` model (gamma and beta as its scale and bias, the running
+statistics with ``num_batches_tracked`` set to ``num_batches``, :62-70 and
+:165-190); both torchvision key spellings (``inner_blocks.0`` /
 ``inner_blocks.0.0``, ``rpn.head.conv`` / ``rpn.head.conv.0.0``) accepted.
 
 ``params_from_jax`` maps the tree that ``detectinblur_tpu``'s
@@ -16,7 +19,10 @@ are named after that tree, so each leaf maps by its path:
 
   * conv ``kernel`` HWIO -> ``weight`` OIHW,
   * Dense ``kernel`` [in, out] -> ``weight`` [out, in],
-  * ``bias`` and the FrozenBN ``scale``/``bias`` pairs copied as they are.
+  * ``bias`` and the BatchNorm ``scale``/``bias`` pairs copied as they are,
+  * with ``batch_stats`` (a ``bn_mode`` model's running statistics), each
+    ``mean`` / ``var`` / ``num_batches_tracked`` leaf to the
+    ``running_mean`` / ``running_var`` / ``num_batches_tracked`` buffer.
 
 Keys and shapes are checked strictly against the port's module tree: a
 missing key, an extra key or a wrong shape raises.
@@ -25,7 +31,7 @@ missing key, an extra key or a wrong shape raises.
 from __future__ import annotations
 
 import argparse
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -55,22 +61,25 @@ def _leaf(key: str, value: np.ndarray):
     return key, value
 
 
-def expected_shapes(num_classes: int = 91) -> Dict[str, torch.Size]:
-    """Key -> shape of the port's FasterRCNN state dict (built on the
-    ``meta`` device, so nothing is allocated)."""
+def expected_shapes(num_classes: int = 91, with_bn_stats: bool = False
+                    ) -> Dict[str, torch.Size]:
+    """Key -> shape of the port's FasterRCNN state dict, with the running
+    statistics of a ``bn_mode`` backbone when ``with_bn_stats`` (built on
+    the ``meta`` device, so nothing is allocated)."""
     from detectinblur_tpu_torch.models.faster_rcnn import (
         FasterRCNN,
         FasterRCNNConfig,
     )
 
-    model = FasterRCNN(FasterRCNNConfig(num_classes=num_classes,
-                                        precision="highest"), device="meta")
+    model = FasterRCNN(FasterRCNNConfig(
+        num_classes=num_classes, precision="highest",
+        bn_mode="eval" if with_bn_stats else None), device="meta")
     return {k: v.shape for k, v in model.state_dict().items()}
 
 
-def _checked(sd: Dict[str, torch.Tensor], num_classes: int
-             ) -> Dict[str, torch.Tensor]:
-    want = expected_shapes(num_classes)
+def _checked(sd: Dict[str, torch.Tensor], num_classes: int,
+             with_bn_stats: bool = False) -> Dict[str, torch.Tensor]:
+    want = expected_shapes(num_classes, with_bn_stats)
     missing = sorted(set(want) - set(sd))
     extra = sorted(set(sd) - set(want))
     if missing or extra:
@@ -83,16 +92,26 @@ def _checked(sd: Dict[str, torch.Tensor], num_classes: int
     return sd
 
 
-def params_from_jax(tree: Mapping, num_classes: int = 91
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var",
+               "num_batches_tracked": "num_batches_tracked"}
+
+
+def params_from_jax(tree: Mapping, num_classes: int = 91,
+                    batch_stats: Optional[Mapping] = None
                     ) -> Dict[str, torch.Tensor]:
-    """JAX param tree (numpy leaves) -> float32 state dict for the port's
+    """JAX param tree (numpy leaves), and for a ``bn_mode`` model its
+    ``batch_stats`` tree, -> float32 state dict for the port's
     ``FasterRCNN``. Raises ``KeyError`` on missing or extra keys and
     ``ValueError`` on a shape mismatch."""
     sd = {}
     for key, value in _flatten(tree).items():
         name, arr = _leaf(key, value)
         sd[name] = torch.from_numpy(np.array(arr, np.float32, order="C"))
-    return _checked(sd, num_classes)
+    for key, value in _flatten(batch_stats or {}).items():
+        head, _, leaf = key.rpartition(".")
+        sd[f"{head}.{_STAT_NAMES[leaf]}"] = torch.from_numpy(
+            np.array(value, np.float32, order="C"))
+    return _checked(sd, num_classes, batch_stats is not None)
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -108,10 +127,13 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in obj.items()}
 
 
-def params_from_torchvision(sd: Mapping, num_classes: int = 91
+def params_from_torchvision(sd: Mapping, num_classes: int = 91,
+                            frozen_bn: bool = True, num_batches: float = 0.0
                             ) -> Dict[str, torch.Tensor]:
     """A torchvision ``fasterrcnn_resnet50_fpn`` state dict (tensors or
-    numpy arrays) -> float32 state dict for the port's ``FasterRCNN``.
+    numpy arrays) -> float32 state dict for the port's ``FasterRCNN``:
+    FrozenBatchNorm folded, or with ``frozen_bn=False`` the state dict of
+    a ``bn_mode`` model (``num_batches`` in every ``num_batches_tracked``).
     Raises ``KeyError`` on a missing key or one left unused, and
     ``ValueError`` on a shape mismatch. The FrozenBN fold is computed in
     numpy float32 as the JAX converter computes it, so both packages get
@@ -132,6 +154,13 @@ def params_from_torchvision(sd: Mapping, num_classes: int = 91
     def fold(dst, prefix):
         gamma, beta, mean, var = (get(f"{prefix}.{k}") for k in (
             "weight", "bias", "running_mean", "running_var"))
+        if not frozen_bn:
+            out[f"{dst}.scale"], out[f"{dst}.bias"] = gamma, beta
+            out[f"{dst}.running_mean"], out[f"{dst}.running_var"] = mean, var
+            out[f"{dst}.num_batches_tracked"] = np.float32(num_batches)
+            if f"{prefix}.num_batches_tracked" in src:
+                used.add(f"{prefix}.num_batches_tracked")
+            return
         scale = gamma / np.sqrt(var + 0.0)
         out[f"{dst}.scale"] = scale
         out[f"{dst}.bias"] = beta - mean * scale
@@ -171,4 +200,4 @@ def params_from_torchvision(sd: Mapping, num_classes: int = 91
     if unused:
         raise KeyError(f"state dict keys left unused: {unused[:5]}")
     return _checked({k: torch.from_numpy(np.array(v, np.float32, order="C"))
-                     for k, v in out.items()}, num_classes)
+                     for k, v in out.items()}, num_classes, not frozen_bn)

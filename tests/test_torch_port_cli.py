@@ -32,7 +32,7 @@ from detectinblur_tpu.utils.torch_convert import convert_fasterrcnn_state_dict
 import detectinblur_tpu_torch.cli.evaluate as cli_eval
 import detectinblur_tpu_torch.cli.train as cli_train
 import detectinblur_tpu_torch.data.batching as batching
-from detectinblur_tpu_torch.cli.args import UNPORTED
+from detectinblur_tpu_torch.cli.args import UNPORTED, bn_mode_for
 from detectinblur_tpu_torch.models.faster_rcnn import (
     FasterRCNN,
     FasterRCNNConfig,
@@ -89,12 +89,14 @@ def tiny(monkeypatch, bank):
     def port_build(args, device):
         return FasterRCNN(FasterRCNNConfig(
             **TINY, rpn=RPNConfig(**TINY_RPN), box=BoxHeadConfig(**TINY_BOX),
-            precision="highest"), device=device)
+            warp_internally=getattr(args, "warp_in_model", False),
+            bn_mode=bn_mode_for(args), precision="highest"), device=device)
 
     def jax_build(args, bn_mode=None):
         return JaxFasterRCNN(JaxFasterRCNNConfig(
             **TINY, bn_mode=bn_mode, rpn=JaxRPNConfig(**TINY_RPN),
-            box=JaxBoxHeadConfig(**TINY_BOX)))
+            box=JaxBoxHeadConfig(**TINY_BOX),
+            warp_internally=args.warp_in_model))
 
     bucket = lambda hw, **kw: (96, 96)
     for mod in (cli_train, cli_eval):
@@ -114,6 +116,16 @@ EVAL_CASES = {
     "vanilla": ["--vanilla_eval"],
     "blur-expand": ["--blur_eval", "--param_index", "1",
                     "--expand_target_boxes"],
+    # The deterministic remedies: the warp, the blur-conditional norms and
+    # mode_one BatchNorm (statistics from the .pth, a count of 16); clean
+    # images get the identity warp and ImageNet's norms.
+    "remedies-clean": ["--vanilla_eval", "--warp_in_model",
+                       "--use_custom_image_norm", "--mode_one_norm"],
+    "remedies-blur": ["--blur_eval", "--param_index", "1", "--warp_in_model",
+                      "--use_custom_image_norm", "--mode_one_norm"],
+    # BatchNorm on each image's own statistics (batch 1).
+    "unfrozen-blur": ["--blur_eval", "--param_index", "2",
+                      "--expand_target_boxes", "--unfrozen_batch_norm"],
 }
 
 
@@ -123,8 +135,10 @@ def test_evaluate_cli_matches_jax(coco_root, pth, tiny, case, monkeypatch,
     """The port's and JAX's ``cli.evaluate.main`` on the same synthetic
     COCO, weights and PSF bank: the same 19 stats within 1e-3 absolute,
     for the clean eval and for each of a blur sweep's 5 cells with the
-    expanded-GT rewrite. Random weights score AP near 1e-3 (AR100
-    0.03-0.15), so each stat is also held within 1e-3 of its own size."""
+    expanded-GT rewrite, and under the deterministic remedies (warp,
+    blur-conditional norms, mode_one and train-mode BatchNorm). Random
+    weights score AP near 1e-3 (AR100 0.03-0.15), so each stat is also
+    held within 1e-3 of its own size."""
     argv = ["--data-path", coco_root, "--start_from_weights", pth,
             "--workers", "2", *EVAL_CASES[case]]
     loops = []
@@ -138,10 +152,11 @@ def test_evaluate_cli_matches_jax(coco_root, pth, tiny, case, monkeypatch,
     ours = cli_eval.main(argv + ["--device", "cpu"])
     printed = capsys.readouterr().out
     ref = jax_cli_eval.main(argv)
-    if case == "vanilla":
+    clean = "--vanilla_eval" in EVAL_CASES[case]
+    if clean:
         ours, ref = {0: ours}, {0: ref}
     assert sorted(ours) == sorted(ref)
-    assert len(ours) == (1 if case == "vanilla" else 5)
+    assert len(ours) == (1 if clean else 5)
     for k in ref:
         assert ours[k].shape == (19,)
         r = np.asarray(ref[k])
@@ -203,6 +218,61 @@ def test_train_checkpoint_then_evaluate(coco_root, tiny, tmp_path):
                            "--vanilla_eval", "--workers", "0",
                            "--early_stop", "2"])
     assert stats.shape == (19,) and np.isfinite(stats).all()
+
+
+def test_train_and_evaluate_with_every_remedy(coco_root, tiny, tmp_path,
+                                              monkeypatch, capsys):
+    """cli.train with every train-time remedy (AugMix, blur, noise, block,
+    JPEG, the warp, the norms, train-mode BatchNorm) on --device cpu: the
+    losses stay finite, the running statistics move and come back bit for
+    bit from model_0.pt with their count of 2 steps. cli.evaluate
+    --mode_one_norm on that checkpoint keeps its count (a .pth would get
+    16), with every eval-time remedy: dilation and the corruptions too.
+    A FrozenBatchNorm checkpoint evaluated with --mode_one_norm starts
+    from fresh statistics, as JAX's restore_subtree does."""
+    out = tmp_path / "out"
+    remedies = ["--warp_in_model", "--use_custom_image_norm",
+                "--add_noise", "--add_block", "--add_jpeg_artefacts"]
+    run = cli_train.main([
+        "--data-path", coco_root, "--device", "cpu", "--blur_train",
+        "--unfrozen_batch_norm", "--non_pos_aug_mix", *remedies, "-b", "2",
+        "--epochs", "1", "--early_stop", "2", "--output_dir", str(out),
+        "--lr", "0.001", "--print-freq", "1", "--workers", "2"])
+    assert len(run.losses) == 2 and run.state.step == 2
+    assert all(np.isfinite(v) for m in run.losses for v in m.values())
+    bn = run.state.model.backbone.body.layer2_0.bn1
+    assert bn.num_batches_tracked.item() == 2.0
+    assert not torch.equal(bn.running_var, torch.ones_like(bn.running_var))
+    saved = torch.load(out / "model_0.pt", weights_only=True)["model"]
+    for k, v in run.state.model.state_dict().items():
+        assert torch.equal(saved[k], v), k
+
+    models = []
+
+    def recorded(eval_step, model, *args, **kwargs):
+        models.append(model)
+        return evaluate_coco(eval_step, model, *args, **kwargs)
+
+    monkeypatch.setattr(cli_eval, "evaluate_coco", recorded)
+    stats = cli_eval.main([
+        "--data-path", coco_root, "--device", "cpu", "--resume",
+        str(out / "model_0.pt"), "--blur_eval", "--param_index", "1",
+        "--mode_one_norm", "--dilate_psf", *remedies, "--workers", "0",
+        "--early_stop", "2"])
+    assert len(stats) == 5 and all(np.isfinite(v).all() for v in stats.values())
+    assert models[0].cfg.bn_mode == "mode_one"
+    assert torch.equal(models[0].backbone.body.layer2_0.bn1.running_var,
+                       bn.running_var)
+    assert models[0].backbone.body.bn1.num_batches_tracked.item() == 2.0
+
+    frozen = tmp_path / "frozen.pt"
+    torch.save(tiny(None, "cpu").state_dict(), frozen)
+    capsys.readouterr()
+    cli_eval.main(["--data-path", coco_root, "--device", "cpu", "--resume",
+                   str(frozen), "--vanilla_eval", "--mode_one_norm",
+                   "--workers", "0", "--early_stop", "1"])
+    assert "holds no BatchNorm statistics" in capsys.readouterr().out
+    assert models[-1].backbone.body.bn1.num_batches_tracked.item() == 0.0
 
 
 # ----------------------------------------------------- weights and files

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, and its
-evaluation CLI, on a card.
+"""The port's CUDA kernels against their plain torch versions, its
+evaluation CLI, and the remedy train and eval steps, on a card.
 
 These tests import neither JAX nor the JAX package, so they run on the
 GPU machine, which has no JAX:
@@ -208,3 +208,126 @@ def test_evaluate_cli_on_the_card(cuda, tmp_path):
     torch.cuda.synchronize()
     assert roi_align_cuda.roi_align_fwd.launches == before + 3
     assert stats.shape == (19,) and np.isfinite(stats).all()
+
+
+def _remedy_inputs():
+    """Two small blurred images with GT, PSFs, blur indices, and the
+    corruption draws, all on the CPU (numpy- and generator-seeded)."""
+    from detectinblur_tpu_torch.ops.psf import sample_psf
+    from detectinblur_tpu_torch.train.engine import BlurBatch
+    from detectinblur_tpu_torch.train.estimator_engine import draw_corruptions
+
+    rng = np.random.default_rng(6)
+    gen = torch.Generator().manual_seed(6)
+    imgs = torch.from_numpy(rng.random((2, 96, 128, 3), np.float32))
+    gt = np.zeros((2, 4, 4), np.float32)
+    gt[..., :2] = rng.uniform(0, 40, (2, 4, 2))
+    gt[..., 2:] = gt[..., :2] + rng.uniform(10, 40, (2, 4, 2))
+    batch = BlurBatch(
+        images=imgs, hw=torch.tensor([[96, 128], [90, 110]]),
+        psfs=sample_psf(2, 0.005, 0.5, iters=300, generator=gen, device="cpu"),
+        blurring=torch.tensor([True, True]), gt_boxes=torch.from_numpy(gt),
+        gt_labels=torch.from_numpy(rng.integers(1, 91, (2, 4))),
+        gt_valid=torch.ones(2, 4, dtype=torch.bool),
+        param_index=torch.tensor([0, 0], dtype=torch.int32),
+        fraction_index=torch.tensor([3, 3], dtype=torch.int32))
+    return batch, draw_corruptions(imgs, True, 0.001, True, True, gen)
+
+
+REMEDY_CFG = dict(min_size=96, max_size=128, precision="highest",
+                  warp_internally=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn_mode", [None, "train"])
+def test_remedy_train_step_card_vs_cpu(cuda, bn_mode):
+    """One train step with the warp, the norms, blur, noise and block (the
+    same corruption draws; the RPN's prediction layers zeroed so both
+    sample the same anchors and rois; the samplers' draws from one CPU
+    generator), both kernels launched on the card: losses within 1e-4
+    relative. With FrozenBatchNorm also the median over tensors of each
+    gradient's error within 5e-3 of its max: the card rounds the warp's
+    sample positions otherwise than the CPU, and a ReLU that such noise
+    flips moves a coarse layer's gradient by up to a few percent, so no
+    bound holds each tensor (chip_smoke.py phase 9c measures the spread).
+    With BatchNorm on a from-scratch model's batch statistics the
+    gradients are chaotic, and the losses alone are held."""
+    from detectinblur_tpu_torch.models.faster_rcnn import (
+        FasterRCNN,
+        FasterRCNNConfig,
+        LossDraws,
+    )
+    from detectinblur_tpu_torch.train.engine import make_train_step
+    from detectinblur_tpu_torch.train.state import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    batch, cdraws = _remedy_inputs()
+    cfg = FasterRCNNConfig(bn_mode=bn_mode, **REMEDY_CFG)
+    A = 3 * (24 * 32 + 12 * 16 + 6 * 8 + 3 * 4 + 2 * 2)
+    PG = cfg.rpn.post_nms_top_n_train + 4
+    gen = torch.Generator().manual_seed(7)
+    draws = LossDraws(rpn=tuple(torch.rand(2, A, generator=gen) for _ in "ab"),
+                      roi=tuple(torch.rand(2, PG, generator=gen) for _ in "ab"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = FasterRCNN(cfg, device=dev, seed=0)
+        with torch.no_grad():
+            model.rpn_head.cls_logits.weight.zero_()
+            model.rpn_head.bbox_pred.weight.zero_()
+            model.rpn_head.bbox_pred.bias.zero_()
+        opt, sched = make_optimizer(model, base_lr=0.02, steps_per_epoch=1)
+        step = make_train_step(model, sched, (96, 128), use_warp=True,
+                               use_custom_norm=True, add_noise=True,
+                               add_block=True, expand_target_boxes=True)
+        before = (roi_align_cuda.roi_align_fwd.launches,
+                  roi_align_cuda.roi_align_bwd.launches)
+        _, m = step(create_train_state(model, opt), batch,
+                    draws=LossDraws(*(tuple(t.to(dev) for t in d)
+                                      for d in draws)),
+                    corruption_draws=cdraws)
+        launched = (roi_align_cuda.roi_align_fwd.launches - before[0],
+                    roi_align_cuda.roi_align_bwd.launches - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        out[dev] = ({k: v.item() for k, v in m.items()},
+                    {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None})
+    for k, v in out["cpu"][0].items():
+        assert abs(out["cuda"][0][k] - v) <= 1e-4 * abs(v), k
+    if bn_mode is None:
+        errs = [(out["cuda"][1][n] - r).abs().max().item()
+                / max(r.abs().max().item(), 1e-30)
+                for n, r in out["cpu"][1].items()]
+        assert np.median(errs) <= 5e-3
+
+
+@pytest.mark.gpu
+def test_remedy_eval_step_on_the_card(cuda):
+    """The eval step with every eval-time remedy (dilation, blur, noise,
+    block, JPEG, the warp, the norms, mode_one BatchNorm) on the card:
+    one forward launch, finite detections, the BatchNorm statistics left
+    as they were."""
+    from detectinblur_tpu_torch.models.batchnorm import set_num_batches_tracked
+    from detectinblur_tpu_torch.models.faster_rcnn import (
+        FasterRCNN,
+        FasterRCNNConfig,
+    )
+    from detectinblur_tpu_torch.train.engine import make_eval_step
+
+    batch, cdraws = _remedy_inputs()
+    model = FasterRCNN(FasterRCNNConfig(bn_mode="mode_one", **REMEDY_CFG),
+                       device=cuda, seed=0)
+    set_num_batches_tracked(model, 16.0)
+    stats = {k: v.clone() for k, v in model.state_dict().items()}
+    step = make_eval_step(model, (96, 128), blur_eval=True,
+                          expand_target_boxes=True, use_warp=True,
+                          use_custom_norm=True, add_noise=True,
+                          add_block=True, add_jpeg=True, dilate_psf=True)
+    before = roi_align_cuda.roi_align_fwd.launches
+    dets, gt = step(model, batch, torch.Generator(device=cuda).manual_seed(0),
+                    corruption_draws=cdraws)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.roi_align_fwd.launches == before + 1
+    assert torch.isfinite(dets.boxes).all() and torch.isfinite(gt).all()
+    assert all(torch.equal(v, stats[k]) for k, v in model.state_dict().items())

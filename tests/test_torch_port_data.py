@@ -287,6 +287,18 @@ def test_loader_raises_what_the_dataset_raises():
                 if t not in before and t.is_alive()]
 
 
-def test_loader_refuses_augmix():
-    with pytest.raises(NotImplementedError, match="augmix"):
-        loader.DetectionLoader([], 1, augmix={"positional": False})
+def test_loader_refuses_augmix(coco_root, monkeypatch):
+    """AugMix is ported: a loader given ``augmix`` no longer refuses it,
+    and its batches are the JAX loader's, exactly (the AugMix cases of
+    tests/test_torch_port_remedies.py cover the positional ops)."""
+    monkeypatch.setattr(batching, "DEFAULT_SOURCE_BUCKETS", ((48, 48),))
+    monkeypatch.setattr(jax_batching, "DEFAULT_SOURCE_BUCKETS", ((48, 48),))
+    kw = dict(batch_size=2, shuffle=True, hflip_prob=0.5, num_workers=2,
+              augmix={"positional": False})
+    got = list(loader.DetectionLoader(get_coco(coco_root, "train"), **kw))
+    want = list(jax_loader.DetectionLoader(jax_get_coco(coco_root, "train"),
+                                           **kw))
+    assert len(got) == len(want) and got
+    for (ob, _, oids), (rb, _, rids) in zip(got, want):
+        assert oids == rids
+        _assert_batch_equal(ob, rb)

@@ -200,7 +200,8 @@ def test_evaluate_coco_matches_jax(coco_root, monkeypatch, expand):
     monkeypatch.setattr(jax_batching, "DEFAULT_SOURCE_BUCKETS", ((48, 48),))
     ids_seen = []
 
-    def port_step(model, batch):
+    def port_step(model, batch, generator):
+        assert isinstance(generator, torch.Generator)
         d = _stub_dets(batch, ids_seen[-1])
         return (Detections(*(torch.from_numpy(a) for a in d)),
                 batch.gt_boxes + 1.5)
@@ -305,8 +306,8 @@ def test_eval_step_matches_jax():
         assert ok.mean() > 0.85, f"image {b}: {ok.mean():.2%} matched"
     with pytest.raises(ValueError, match="another model"):
         step(FasterRCNN(model.cfg, device="meta"), batch)
-    with pytest.raises(NotImplementedError, match="dilate_psf"):
-        engine.make_eval_step(model, BUCKET, dilate_psf=True)
+    with pytest.raises(NotImplementedError, match="deblur_first"):
+        engine.make_eval_step(model, BUCKET, deblur_first=True)
 
 
 # ------------------------------------------------- across two processes

@@ -381,11 +381,17 @@ def test_make_optimizer_freezes_and_trains():
 
 
 def test_train_step_refuses_unported_options():
+    """The remedies are ported: every option of the train and eval steps
+    builds a step. Deblur-first, the one option still to port, raises."""
     model = FasterRCNN(FasterRCNNConfig(precision="highest"), device="meta")
     for kw in ("use_warp", "use_custom_norm", "add_noise", "add_block",
                "add_jpeg"):
-        with pytest.raises(NotImplementedError, match=kw):
-            engine.make_train_step(model, lambda s: 0.0, (64, 64), **{kw: True})
+        assert callable(engine.make_train_step(model, lambda s: 0.0, (64, 64),
+                                               **{kw: True}))
+        assert callable(engine.make_eval_step(model, (64, 64), **{kw: True}))
+    assert callable(engine.make_eval_step(model, (64, 64), dilate_psf=True))
+    with pytest.raises(NotImplementedError, match="deblur_first"):
+        engine.make_eval_step(model, (64, 64), deblur_first=True)
 
 
 def test_images01_matches_jax():
