@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, training, entry-point and remedy
-paths on one CUDA card.
+"""Drive the PyTorch port's serving, training, entry-point, remedy,
+deblur-first, blur-estimator and ensemble paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -78,6 +78,23 @@ Phases (any failure exits non-zero and prints no result):
      checkpoint must give back its BatchNorm buffers bit for bit, then
      ``cli.evaluate`` on it as a 5-cell sweep with --mode_one_norm,
      --dilate_psf, the warp, the norms and the corruptions.
+ 10. Deblur-first, the blur estimator and the LEHE ensemble: DeepDeblur's
+     MSResNet at its published size (3 scales, 64 features, 19 blocks,
+     synthetic weights) in float32 without TF32 on phase 4's batch and on
+     one 832x1088 image, ms per image beside its FLOP bound, the card
+     against the CPU on a small image; the resnet18 estimator's train step
+     (16 classes, then 4) at B=8 on 832x1088 with every corruption, the
+     min-side-800 blur and the crop, which must move every parameter and
+     statistic, img/s and peak memory, the card against the CPU on a small
+     input; then ``cli.train_blur_estimator --LEHE_blur_seg`` (3 steps, a
+     checkpoint back bit for bit, then ``--test_only``) and
+     ``cli.evaluate --use_ensemble --LEHE`` on four specialists (phase 8's
+     checkpoint and three random ones) gated by that estimator after
+     ``--deblur_first``, clean and as a sweep, and an oracle sweep: one
+     forward launch per image, 19 finite stats, the kernel held on each
+     eval's inputs, the chosen specialists printed, and the clean ensemble
+     eval again on the CPU with the card's stats. Cut to 4 clean and 8
+     sweep images an eval.
 
 The last two lines are a JSON object describing each kernel (its
 ``launches`` summed over the counted runs of every path, one count per
@@ -88,6 +105,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -926,12 +944,15 @@ def profile_eval(argv, loops):
             for e in top]}
 
 
-def run_entry_points():
+def run_entry_points(keep):
     """Phase 8: cli.train, then cli.evaluate clean and as a blur sweep, on
     a synthetic COCO, each kernel held against its plain version on the
     inputs each CLI handed it; then the clean eval again under the
-    profiler and on the CPU. Returns the launches of each kernel per
-    CLI."""
+    profiler and on the CPU. Copies cli.train's ``model_0.pt`` into
+    ``keep`` (phase 10's first specialist). Returns the launches of each
+    kernel per CLI."""
+    import shutil
+
     import tempfile
 
     import detectinblur_tpu_torch.cli.evaluate as cli_eval
@@ -1013,6 +1034,7 @@ def run_entry_points():
         if not (same_weights and same_momentum
                 and state.step == run.state.step):
             sys.exit("restore_checkpoint did not give the state back bit for bit")
+        shutil.copy(ckpt, keep / ckpt.name)
         del model, opt, state, run
 
         eval_launches = {"roi_align_fwd": 0, "roi_align_bwd": 0}
@@ -1125,7 +1147,7 @@ def run_remedy_train(gen):
     )
     from detectinblur_tpu_torch.ops.roi_align import roi_geometry
     from detectinblur_tpu_torch.train.engine import (
-        _remedy_kwargs,
+        remedy_kwargs,
         apply_blur_and_expand,
         derive_warp_params,
         images01,
@@ -1212,7 +1234,7 @@ def run_remedy_train(gen):
                                   add_jpeg=True, generator=gen)
         ev[1].record()
         b = derive_warp_params(b)
-        kw = _remedy_kwargs(b, True, True)
+        kw = remedy_kwargs(b, True, True)
         ev[2].record()
         losses = model.loss(b.images, b.hw, b.gt_boxes, b.gt_labels,
                             b.gt_valid, bucket, generator=gen, **kw)
@@ -1252,7 +1274,7 @@ def run_remedy_predict(gen):
     )
     from detectinblur_tpu_torch.ops.roi_align import roi_geometry
     from detectinblur_tpu_torch.train.engine import (
-        _remedy_kwargs,
+        remedy_kwargs,
         derive_warp_params,
         make_eval_step,
         prepare_eval_batch,
@@ -1318,7 +1340,7 @@ def run_remedy_predict(gen):
                    if k not in ("use_warp", "use_custom_norm")})
             ev[1].record()
             b = derive_warp_params(b)
-            kw = _remedy_kwargs(b, True, True)
+            kw = remedy_kwargs(b, True, True)
             ev[2].record()
             batched, new_hw = model.preprocess(b.images, b.hw, bucket,
                                                kw["means"], kw["stds"])
@@ -1627,6 +1649,341 @@ def run_remedy_entry_points():
             "cli_evaluate_remedies": eval_launches}
 
 
+# ------------------------------------------- deblur, estimator, ensemble
+def msresnet_flops(net, h, w):
+    """Floating-point operations (2 per multiply-add) of one MSResNet
+    forward on an h x w image padded to /2^(scales-1), every conv of every
+    scale at that scale's size."""
+    div = 2 ** (net.n_scales - 1)
+    h, w = -(-h // div) * div, -(-w // div) * div
+    total = 0
+    for name, m in net.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            s = int(name.split(".")[0][-1])
+            cout, cin, kh, kw = m.weight.shape
+            total += 2 * cin * cout * kh * kw * (h >> s) * (w >> s)
+    return total
+
+
+def run_deblur(gen):
+    """Phase 10a: deblur-first's MSResNet at the full published size (3
+    scales, 64 features, 19 blocks; ``synthetic_deepdeblur_state_dict``
+    from seed 0) in float32 with TF32 off: ``deblur_image`` on phase 4's
+    batch (8 x 480x640) and on one 832x1088 image, ms per image beside the
+    bound (its FLOPs over the float32 peak); the card against the CPU on a
+    1 x 64x96 image. Returns the timings."""
+    from synthetic_torch import synthetic_deepdeblur_state_dict
+
+    from detectinblur_tpu_torch.models.deblur import MSResNet, deblur_image
+    from detectinblur_tpu_torch.utils.convert import deepdeblur_from_torch
+
+    sd = deepdeblur_from_torch(synthetic_deepdeblur_state_dict())
+    net = MSResNet.from_state_dict(sd).cuda().to(
+        memory_format=torch.channels_last).eval()
+    out = {}
+    for name, (n, h, w) in (("batch 8 x 480x640", (B, *SRC_HW)),
+                            ("1 x 832x1088", (1, 832, 1088))):
+        x = torch.rand(n, h, w, 3, generator=gen).cuda()
+        y = deblur_image(net, x)
+        if y.shape != x.shape or not torch.isfinite(y).all() or not (
+                (y >= 0) & (y <= 1)).all():
+            sys.exit(f"deblur_image {name}: bad output")
+        ms = _cuda_ms(lambda: deblur_image(net, x), 2) / n
+        flops = msresnet_flops(net, h, w)
+        out[name] = {"ms_per_image": ms, "tflop_per_image": flops / 1e12,
+                     "bound_ms_per_image": flops / F32_OPS_PER_S * 1e3}
+        print(f"deblur_image {name}: {ms:.2f} ms an image, bound "
+              f"{flops / F32_OPS_PER_S * 1e3:.2f} ms ({flops / 1e12:.3f} "
+              f"TFLOP an image, float32)")
+        del x, y
+    x = torch.rand(1, 64, 96, 3, generator=gen)
+    cpu = deblur_image(MSResNet.from_state_dict(sd).eval(), x)
+    err = (deblur_image(net, x.cuda()).cpu() - cpu).abs().max().item()
+    print(f"deblur_image card vs CPU (1 x 64x96): max |difference| {err:.3g}, "
+          f"tolerance 1e-4: {'ok' if err <= 1e-4 else 'FAILED'}")
+    if err > 1e-4:
+        sys.exit("the card's deblur disagrees with the CPU's")
+    return out
+
+
+def _estimator_batch(gen, n=B, hw=SRC_HW):
+    """``n`` random images of size ``hw`` with camera-shake PSFs, 3 in 4
+    blurred, random (type, exposure) indices (the labels), on the host."""
+    from detectinblur_tpu_torch.ops.psf import sample_psf
+    from detectinblur_tpu_torch.train.engine import BlurBatch
+
+    rng = np.random.default_rng(1)
+    blurring = torch.from_numpy(np.arange(n) % 4 != 3)
+    return BlurBatch(
+        images=torch.from_numpy(rng.random((n, *hw, 3), np.float32)),
+        hw=torch.tensor([hw] * n),
+        psfs=sample_psf(n, expl=0.005, fraction=0.5, generator=gen,
+                        device="cpu"),
+        blurring=blurring, gt_boxes=torch.zeros(n, 1, 4),
+        gt_labels=torch.zeros(n, 1, dtype=torch.int64),
+        gt_valid=torch.zeros(n, 1, dtype=torch.bool),
+        param_index=torch.from_numpy(
+            np.where(blurring, rng.integers(0, 3, n), -1).astype(np.int32)),
+        fraction_index=torch.from_numpy(
+            np.where(blurring, rng.integers(0, 5, n), -1).astype(np.int32)),
+        est_label=torch.full((n,), -1, dtype=torch.int32))
+
+
+ESTIMATOR_FLAGS = dict(label_smoothing=0.1, add_noise=True, add_block=True,
+                       add_jpeg=True, quantize=True, resize_images=True,
+                       crop_images=True)
+
+
+def _estimator_step(n_classes, precision, device, bucket, flags):
+    from detectinblur_tpu_torch.models.classifier import ResNetClassifier
+    from detectinblur_tpu_torch.train.estimator_engine import (
+        make_estimator_train_step,
+    )
+    from detectinblur_tpu_torch.train.state import (
+        TrainState,
+        make_lr_schedule,
+    )
+
+    model = ResNetClassifier("resnet18", n_classes, precision=precision,
+                             device=device, seed=n_classes)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9,
+                          weight_decay=1e-4)
+    step = make_estimator_train_step(
+        model, make_lr_schedule(0.01, 1, milestones=(6, 8)), bucket,
+        lehe=n_classes == 4, **flags)
+    return model, TrainState(0, model, opt), step
+
+
+def run_estimator(gen):
+    """Phase 10b: the blur estimator's train step, resnet18 to 16 classes
+    and then 4 (LEHE), B=8 480x640 sources on the 832x1088 bucket,
+    ``default`` precision, with the blur through the min-side-800 canvas
+    (1600x1600), noise, block, JPEG, quantization, the crop and label
+    smoothing 0.1: 3 steps must move every parameter (the BatchNorm
+    affines too) and every running statistic; img/s from device time over
+    3 more, peak memory. Then the card against the CPU on 2 x 64x96
+    images (the noise and block draws shared; JPEG and quantization
+    off): loss, gradients, statistics."""
+    from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
+    from detectinblur_tpu_torch.train.estimator_engine import draw_corruptions
+
+    bucket = model_bucket_for_batch([SRC_HW] * B)
+    batch = _estimator_batch(gen)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for n_classes in (16, 4):
+        torch.cuda.reset_peak_memory_stats()
+        model, state, step = _estimator_step(n_classes, "default", "cuda",
+                                             bucket, ESTIMATOR_FLAGS)
+        params0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+        stats0 = {k: v.clone() for k, v in model.state_dict().items()
+                  if k.rpartition(".")[2] in BN_STATS}
+        losses = []
+        for _ in range(3):
+            state, m = step(state, batch, generator=cuda_gen)
+            losses.append(m["loss"].item())
+        moved = sum(not torch.equal(p.detach(), params0[k])
+                    for k, p in model.named_parameters())
+        stats_moved = sum(not torch.equal(model.state_dict()[k], v)
+                          for k, v in stats0.items())
+
+        def one():
+            nonlocal state
+            state, _ = step(state, batch, generator=cuda_gen)
+        ms = _cuda_ms(one, 3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"estimator {n_classes} classes: losses {losses}; parameters "
+              f"moved {moved} of {len(params0)}, running statistics moved "
+              f"{stats_moved} of {len(stats0)}; {ms:.2f} ms a step, "
+              f"{B / ms * 1e3:.2f} img/s, peak {peak:.2f} GiB")
+        if not all(np.isfinite(losses)) or moved != len(params0) or \
+                stats_moved != len(stats0):
+            sys.exit(f"estimator {n_classes}: non-finite loss, or a "
+                     "parameter or statistic that did not move")
+        out[n_classes] = {"img_s": B / ms * 1e3, "step_ms": ms,
+                          "peak_gib": peak}
+        del model, state, step
+
+    # JPEG and the quantization round the image values, so the float noise
+    # between cuFFT's and the CPU's blur flips some of their steps (a 1e-6
+    # nudge moves the CPU's own gradients by up to 0.35 of a tensor's max
+    # with them, 6e-5 without): the comparison leaves them out.
+    small = _estimator_batch(gen, n=2, hw=(64, 96))
+    draws = draw_corruptions(small.images, True, 0.001, True, False,
+                             torch.Generator().manual_seed(4))
+    continuous = dict(ESTIMATOR_FLAGS, add_jpeg=False, quantize=False)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model, state, step = _estimator_step(4, "highest", dev, (64, 96),
+                                             continuous)
+        _, m = step(state, small, corruption_draws=draws)
+        got[dev] = (m["loss"].item(),
+                    {k: p.grad.cpu() for k, p in model.named_parameters()},
+                    {k: v.cpu() for k, v in model.state_dict().items()
+                     if k.rpartition(".")[2] in BN_STATS})
+    (lc, gc, sc), (lp, gp, sp) = got["cuda"], got["cpu"]
+    gerr = {k: ((gc[k] - gp[k]).abs().max() / gp[k].abs().max()).item()
+            for k in gp}
+    serr = max(((sc[k] - sp[k]).abs().max()
+                / sp[k].abs().max().clamp(min=1)).item() for k in sp)
+    ok = (abs(lc - lp) <= 1e-4 * abs(lp) and max(gerr.values()) <= 5e-2
+          and float(np.median(list(gerr.values()))) <= 2e-3 and serr <= 1e-4)
+    print(f"estimator step card vs CPU (2 x 64x96): loss {lc:.7g} vs "
+          f"{lp:.7g}; gradients within {max(gerr.values()):.3g} of each "
+          f"tensor's max (median {np.median(list(gerr.values())):.3g}), "
+          f"statistics {serr:.3g}; tolerance loss 1e-4 relative, gradients "
+          f"5e-2 (median 2e-3), statistics 1e-4: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        sys.exit("the card's estimator step disagrees with the CPU's")
+    return out
+
+
+def run_ensemble_entry_points(keep):
+    """Phase 10c: the CLIs of this slice on phase 8's synthetic COCO.
+    ``cli.train_blur_estimator --LEHE_blur_seg`` (batch 2, 3 steps, the
+    corruptions, quantization, --resize_images, --crop_images) must write
+    a checkpoint that comes back bit for bit, running statistics included;
+    then ``--test_only`` on it. ``cli.evaluate --use_ensemble --LEHE`` on
+    four specialists (phase 8's ``model_0.pt`` in ``keep`` and
+    ``tests/torch_reference`` weights at seeds 1-3) with that estimator
+    and ``--deblur_first`` on the full synthetic MSResNet: clean (4
+    images, so that the CPU rerun stays short) and a one-param sweep (5
+    cells of 8 images); then an oracle sweep (no estimator, no deblur, 5
+    cells of 8 images). Each eval must launch ``roi_align_fwd`` once per
+    image and give 19 finite stats with detections scored; the kernel is
+    held against its plain version on the inputs each eval handed it; the
+    clean ensemble eval rerun on the CPU must give the card's 19 stats.
+    Returns the launches per CLI and the eval loops' readings."""
+    import tempfile
+
+    import detectinblur_tpu_torch.cli.evaluate as cli_eval
+    import detectinblur_tpu_torch.cli.train_blur_estimator as cli_est
+    from detectinblur_tpu_torch.models.classifier import ResNetClassifier
+    from detectinblur_tpu_torch.train import eval_loop
+    from detectinblur_tpu_torch.train.checkpoint import restore_checkpoint
+    from detectinblur_tpu_torch.train.state import TrainState
+    from synthetic_torch import synthetic_deepdeblur_state_dict
+    from torch_reference import make_random_fasterrcnn_sd
+
+    loops, chosen = [], []
+
+    def recorded_eval(*args, **kwargs):
+        stats, loop = eval_loop.evaluate_coco(*args, **kwargs)
+        loops.append(loop)
+        return stats, loop
+
+    def recording_predict(*args, **kwargs):
+        predict = make_ensemble_predict(*args, **kwargs)
+
+        def run(*a, **k):
+            dets, gt, index = predict(*a, **k)
+            chosen[-1].append(int(index))
+            return dets, gt, index
+        return run
+
+    make_ensemble_predict = cli_eval.make_ensemble_predict
+    cli_eval.evaluate_coco = recorded_eval
+    cli_eval.make_ensemble_predict = recording_predict
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = _write_coco(str(tmp / "coco"))
+        est_out = str(tmp / "estimator")
+        t0 = time.perf_counter()
+        run, n = _counted(lambda: cli_est.main([
+            "--data-path", root, "--LEHE_blur_seg", "--add_noise",
+            "--add_block", "--add_jpeg_artefacts", "--quantize_image",
+            "--resize_images", "--crop_images", "--label_smoothing", "0.1",
+            "-b", "2", "--epochs", "1", "--early_stop", "2",
+            "--print-freq", "1", "--output_dir", est_out]))
+        print(f"cli.train_blur_estimator: {time.perf_counter() - t0:.2f} s, "
+              f"steps {run.state.step}, losses " + json.dumps(run.losses)
+              + f", top-1 {run.top1}, top-2 {run.top2}")
+        if run.state.step != 3 or not all(
+                np.isfinite(v) for m in run.losses for v in m.values()):
+            sys.exit("cli.train_blur_estimator: not 3 finite steps")
+        ckpt = str(Path(est_out) / "model_0.pt")
+        model = ResNetClassifier("resnet18", 4, device="cuda")
+        state = restore_checkpoint(ckpt, TrainState(0, model, torch.optim.SGD(
+            model.parameters(), lr=0.01, momentum=0.9)))
+        same = all(torch.equal(v, model.state_dict()[k]) for k, v in
+                   run.state.model.state_dict().items())
+        print(f"estimator checkpoint: weights and running statistics {same}, "
+              f"step {state.step}, count "
+              f"{model.body.bn1.num_batches_tracked.item()}")
+        if not same or state.step != 3:
+            sys.exit("the estimator checkpoint did not come back bit for bit")
+        del model, state, run
+        test = cli_est.main(["--data-path", root, "--LEHE_blur_seg",
+                             "--resize_images", "--crop_images",
+                             "--test_only", "--resume", ckpt, "-b", "2",
+                             "--output_dir", est_out])
+        print(f"cli.train_blur_estimator --test_only: top-1 {test.top1}, "
+              f"top-2 {test.top2}, confusion {test.confusion.tolist()}")
+        launches["cli_train_blur_estimator"] = n
+
+        paths = [str(keep / "model_0.pt")]
+        for seed in (1, 2, 3):
+            paths.append(str(tmp / f"specialist_{seed}.pth"))
+            torch.save({k: torch.from_numpy(v) for k, v in
+                        make_random_fasterrcnn_sd(
+                            np.random.default_rng(seed)).items()}, paths[-1])
+        deblur = str(tmp / "deepdeblur.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    synthetic_deepdeblur_state_dict().items()}, deblur)
+        ensemble = ["--data-path", root, "--use_ensemble",
+                    "--ensemble_model_paths", *paths]
+        gated = ensemble + ["--LEHE", "--blur_estimator_path", ckpt,
+                            "--deblur_first", "--deblurer_model_location",
+                            deblur]
+        runs = (("clean", gated + ["--vanilla_eval", "--early_stop", "4"],
+                 1, 4),
+                ("sweep P1", gated + ["--blur_eval", "--param_index", "1",
+                                      "--early_stop", "8"], 5, 8),
+                ("oracle sweep P2", ensemble + ["--blur_eval",
+                                                "--param_index", "2",
+                                                "--early_stop", "8"], 5, 8))
+        for name, argv, cells, images in runs:
+            path = f"cli.evaluate ensemble {name}"
+            fwd, chosen[:] = {}, [[]]
+            t0 = time.perf_counter()
+            with _capture_roi_align(fwd, {}):
+                got, n = _counted(lambda: cli_eval.main(argv))
+            results = {0: got} if cells == 1 else got
+            print(f"{path}: {time.perf_counter() - t0:.2f} s, launches {n}, "
+                  f"specialists chosen {np.bincount(chosen[0], minlength=4).tolist()}"
+                  f" (first images {chosen[0][:10]})")
+            if len(results) != cells:
+                sys.exit(f"{path}: {len(results)} cells, want {cells}")
+            for cell, stats in sorted(results.items()):
+                _check_stats(f"{path} {cell}", stats)
+            if n["roi_align_fwd"] != cells * images:
+                sys.exit(f"{path}: roi_align_fwd launched {n['roi_align_fwd']}"
+                         f" times for {cells * images} images")
+            check_captured(path, fwd, {})
+            launches[path.replace(" ", "_").replace(".", "_")] = n
+            if name == "clean":
+                card = got
+        t0 = time.perf_counter()
+        cpu = cli_eval.main(runs[0][1] + ["--device", "cpu"])
+        err = np.abs(np.asarray(card) - cpu)
+        dets = [loops[0]["detections"], loops[-1]["detections"]]
+        ok = bool(((err <= 1e-3) & (err <= 1e-3 * np.abs(cpu) + 1e-7)).all()
+                  ) and abs(dets[0] - dets[1]) <= 0.02 * dets[1]
+        print(f"card vs CPU clean ensemble eval ({time.perf_counter() - t0:.2f}"
+              f" s on the CPU): max |stat difference| {err.max():.3g}, "
+              f"tolerance 1e-3 and 1e-3 of each stat; detections {dets[0]} vs "
+              f"{dets[1]}, tolerance 2%: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            sys.exit("the card's ensemble eval disagrees with the CPU's")
+    cli_eval.make_ensemble_predict = make_ensemble_predict
+    for s in loops:
+        print("eval loop " + json.dumps(s))
+    return launches, [{k: s[k] for k in ("images", "img_s", "wall_s",
+                                          "step_ms_per_image")}
+                      for s in loops[:-1]]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1674,7 +2031,8 @@ def main():
     del levels, captured
     check_against_cpu()
     check_train_against_cpu()
-    entry = run_entry_points()
+    keep = tempfile.TemporaryDirectory()
+    entry = run_entry_points(Path(keep.name))
     remedy_train, remedy_img_s = run_remedy_train(cuda_gen)
     remedy_predict, remedy_predict_img_s = run_remedy_predict(cuda_gen)
     check_remedies_against_cpu()
@@ -1682,6 +2040,17 @@ def main():
     print("remedies " + json.dumps({
         "train_img_s": remedy_img_s, "plain_train_img_s": train_img_s,
         "predict_img_s": remedy_predict_img_s, "serving_img_s": serving_img_s}))
+    t0 = time.perf_counter()
+    deblur = run_deblur(gen)
+    estimator = run_estimator(gen)
+    ensemble_launches, ensemble_loops = run_ensemble_entry_points(
+        Path(keep.name))
+    keep.cleanup()
+    entry.update(ensemble_launches)
+    print("phase 10 " + json.dumps({
+        "deblur": deblur, "estimator_train": estimator,
+        "ensemble_eval_loops": ensemble_loops,
+        "seconds": time.perf_counter() - t0}))
 
     by_path = {
         "roi_align_fwd": {"serving": launches,

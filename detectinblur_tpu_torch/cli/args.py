@@ -4,7 +4,10 @@ and evaluate.py:378-468), except ``--device``, which defaults to ``cuda``.
 
 Flags whose feature the port does not have yet are parsed as there, and
 ``refuse_unported`` raises ``NotImplementedError`` naming each one that
-was set: no flag is silently ignored.
+was set; so do the evaluation-only flags (``EVAL_ONLY``: deblur-first and
+the ensemble) given to ``cli.train``, which never reads them: no flag is
+silently ignored. ``estimator_parser`` is the blur estimator trainer's
+(JAX ``cli/train_blur_estimator.py:35-51``).
 """
 
 from __future__ import annotations
@@ -18,10 +21,11 @@ _SUPPORTED = {
     "model": ("fasterrcnn_resnet50_fpn",),
 }
 # Flags whose every non-default value raises.
-UNPORTED = (
+UNPORTED = ("blurred_dataset", "expand_synth_boxes", "image_output_dir")
+# Flags that only cli.evaluate reads (JAX's cli/train.py never does).
+EVAL_ONLY = (
     "deblur_first", "deblurer_model_location",
     "use_ensemble", "ensemble_model_paths", "blur_estimator_path", "LEHE",
-    "blurred_dataset", "expand_synth_boxes", "image_output_dir",
 )
 
 
@@ -128,6 +132,24 @@ def eval_parser() -> argparse.ArgumentParser:
     return p
 
 
+def estimator_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="blur estimator training (PyTorch)")
+    add_common_args(p)
+    p.add_argument("--epochs", default=10, type=int)
+    p.add_argument("--lr", default=0.01, type=float)
+    p.add_argument("--momentum", default=0.9, type=float)
+    p.add_argument("--wd", "--weight-decay", dest="weight_decay",
+                   default=1e-4, type=float)
+    p.add_argument("--LEHE_blur_seg", action="store_true")
+    p.add_argument("--crop_images", action="store_true")
+    p.add_argument("--resize_images", action="store_true")
+    p.add_argument("--quantize_image", action="store_true")
+    p.add_argument("--test_only", action="store_true")
+    p.add_argument("--label_smoothing", default=0.0, type=float)
+    return p
+
+
 def bn_mode_for(args) -> Optional[str]:
     """The backbone's BatchNorm mode the flags ask for: ``mode_one`` for
     --mode_one_norm (evaluation), ``train`` for --unfrozen_batch_norm,
@@ -137,15 +159,28 @@ def bn_mode_for(args) -> Optional[str]:
     return "train" if getattr(args, "unfrozen_batch_norm", False) else None
 
 
+def set_flags(parser: argparse.ArgumentParser, args: argparse.Namespace,
+              dests) -> list:
+    """``--dest`` of each of ``dests`` set to another value than its
+    default."""
+    return [f"--{d}" for d in dests
+            if hasattr(args, d) and getattr(args, d) != parser.get_default(d)]
+
+
 def refuse_unported(parser: argparse.ArgumentParser,
-                    args: argparse.Namespace) -> None:
+                    args: argparse.Namespace, not_read=()) -> None:
     """Raise ``NotImplementedError`` naming every flag set to a value the
-    port does not support yet."""
-    asked = [f"--{d}" for d in UNPORTED
-             if hasattr(args, d) and getattr(args, d) != parser.get_default(d)]
+    port does not support yet, and every flag of ``not_read`` (those the
+    calling CLI does not read) that was set."""
+    asked = set_flags(parser, args, UNPORTED)
     asked += [f"--{d} {getattr(args, d)}" for d, ok in _SUPPORTED.items()
               if getattr(args, d) not in ok]
     if args.world_size > 1:
         asked.append(f"--world-size {args.world_size}")
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+    unread = set_flags(parser, args, not_read)
+    if asked or unread:
+        raise NotImplementedError(
+            "; ".join(([f"not ported yet: {', '.join(asked)}"] if asked
+                       else []) + ([f"not read by this CLI: "
+                                    f"{', '.join(unread)}"] if unread
+                                   else [])))

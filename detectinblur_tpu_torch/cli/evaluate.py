@@ -14,12 +14,26 @@ model bucket. The in-detector remedies follow their flags:
 ``--unfrozen_batch_norm`` (the backbone's BatchNorms in ``mode_one`` or
 ``train`` mode), ``--dilate_psf`` and the corruptions ``--add_noise``,
 ``--add_block`` and ``--add_jpeg_artefacts``, their draws from a
-generator seeded per iteration by the eval loop. Deblur-first, ensembles
-and natural-blur datasets raise ``NotImplementedError``.
+generator seeded per iteration by the eval loop. ``--deblur_first`` with
+``--deblurer_model_location`` (a DeepDeblur ``.pth``) runs the MSResNet on
+each image after the blur and the corruptions. ``--use_ensemble`` with four
+``--ensemble_model_paths`` evaluates the estimator-gated specialist
+ensemble: the ``--blur_estimator_path`` checkpoint of
+``cli.train_blur_estimator`` (4 classes with ``--LEHE``, else 16) picks a
+specialist per image, or, without it, the true blur struct does.
+Natural-blur datasets raise ``NotImplementedError``.
+
+Refused with ``ValueError``, where the JAX CLI goes wrong: ``--deblur_first``
+without a model path (JAX evaluates without deblurring) or a path without
+the flag; ``--use_ensemble`` with ``--mode_one_norm`` or
+``--unfrozen_batch_norm`` (JAX fails on an assert), without exactly four
+paths (an ``assert`` in JAX), or with ``--resume`` /
+``--start_from_weights``; the ensemble's flags without ``--use_ensemble``.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
@@ -38,10 +52,17 @@ from detectinblur_tpu_torch.data.coco import get_coco
 from detectinblur_tpu_torch.data.loader import DetectionLoader
 from detectinblur_tpu_torch.ops.psf import EVAL_FRACTIONS, EVAL_PARAMS
 from detectinblur_tpu_torch.parallel.dist import process_count, process_index
+from detectinblur_tpu_torch.models.classifier import ResNetClassifier
+from detectinblur_tpu_torch.models.deblur import MSResNet
+from detectinblur_tpu_torch.models.ensemble import (
+    make_ensemble_predict,
+    stack_specialists,
+)
 from detectinblur_tpu_torch.train.checkpoint import restore_weights
 from detectinblur_tpu_torch.train.engine import make_eval_step
 from detectinblur_tpu_torch.train.eval_loop import evaluate_coco
 from detectinblur_tpu_torch.utils.convert import (
+    deepdeblur_from_torch,
     load_torch_state_dict,
     params_from_torchvision,
 )
@@ -66,12 +87,59 @@ def load_params(model, path: str):
     return restore_weights(path, model, fresh_bn_stats=bn)
 
 
+def load_estimator(path: str, n_classes: int, device) -> ResNetClassifier:
+    """The resnet18 blur estimator with eval-mode BatchNorm, its weights
+    and running statistics from a ``cli.train_blur_estimator`` checkpoint
+    or a bare state dict of the port (strict: the statistics must be in
+    it, since eval-mode BatchNorm normalizes with them)."""
+    estimator = ResNetClassifier("resnet18", n_classes, bn_mode="eval",
+                                 device=device)
+    return restore_weights(path, estimator).eval()
+
+
+def load_deblurrer(path: str, device) -> MSResNet:
+    """DeepDeblur's MSResNet from its PyTorch checkpoint, on ``device``."""
+    net = MSResNet.from_state_dict(deepdeblur_from_torch(
+        load_torch_state_dict(path)))
+    return net.to(device=device, memory_format=torch.channels_last).eval()
+
+
+def check_remedy_flags(args) -> None:
+    """``ValueError`` for the flag combinations the JAX CLI evaluates
+    wrongly or fails on (module docstring)."""
+    if args.deblur_first != bool(args.deblurer_model_location):
+        raise ValueError("--deblur_first and --deblurer_model_location go "
+                         "together")
+    if not args.use_ensemble:
+        given = [f"--{d}" for d in ("ensemble_model_paths",
+                                    "blur_estimator_path", "LEHE")
+                 if getattr(args, d)]
+        if given:
+            raise ValueError(f"{', '.join(given)} need --use_ensemble")
+        return
+    for flag in ("mode_one_norm", "unfrozen_batch_norm"):
+        if getattr(args, flag):
+            raise ValueError(f"--use_ensemble with --{flag}: the ensemble "
+                             "stacks FrozenBatchNorm specialists only")
+    if len(args.ensemble_model_paths or ()) != 4:
+        raise ValueError("--use_ensemble needs four --ensemble_model_paths, "
+                         f"got {args.ensemble_model_paths}")
+    if args.resume or args.start_from_weights:
+        raise ValueError("--use_ensemble takes its weights from "
+                         "--ensemble_model_paths, not --resume or "
+                         "--start_from_weights")
+
+
 def run_cell(args, model, dataset_val, policy: BlurPolicy, psf_bank,
-             step_cache: Optional[dict] = None) -> np.ndarray:
+             step_cache: Optional[dict] = None, ensemble=None,
+             deblurrer: Optional[MSResNet] = None) -> np.ndarray:
     """One COCO eval (engine.py:220-416 of the reference) under ``policy``:
     batch 1, each image at its own model bucket, the eval steps cached by
-    bucket in ``step_cache`` (shared across the sweep's cells). Prints the
-    distinct model buckets this eval met."""
+    bucket in ``step_cache`` (shared across the sweep's cells). With
+    ``ensemble`` = (``Specialists``, estimator or None) each image goes to
+    the specialist chosen for it (``model`` is their template). Prints the
+    distinct model buckets this eval met and, for the ensemble, how many
+    images each specialist got."""
     loader = DetectionLoader(
         dataset_val, 1, policy, psf_bank, shuffle=False,
         num_processes=process_count(), process_index=process_index(),
@@ -80,24 +148,37 @@ def run_cell(args, model, dataset_val, policy: BlurPolicy, psf_bank,
     expand = args.expand_target_boxes and blur
     eval_steps = step_cache if step_cache is not None else {}
     met = set()
+    remedies = dict(
+        blur_eval=blur, expand_target_boxes=expand,
+        use_warp=args.warp_in_model,
+        use_custom_norm=args.use_custom_image_norm, deblurrer=deblurrer,
+        add_noise=args.add_noise, noise_level=args.noise_level,
+        add_block=args.add_block, add_jpeg=args.add_jpeg_artefacts,
+        dilate_psf=args.dilate_psf)
+    choices = []
 
     def eval_step(m, batch, generator):
         b = model_bucket_for_batch(batch.hw)
         met.add(b)
+        if ensemble is None:
+            if b not in eval_steps:
+                eval_steps[b] = make_eval_step(model, b, **remedies)
+            return eval_steps[b](m, batch, generator)
+        specialists, estimator = ensemble
         if b not in eval_steps:
-            eval_steps[b] = make_eval_step(
-                model, b, blur_eval=blur, expand_target_boxes=expand,
-                use_warp=args.warp_in_model,
-                use_custom_norm=args.use_custom_image_norm,
-                add_noise=args.add_noise, noise_level=args.noise_level,
-                add_block=args.add_block, add_jpeg=args.add_jpeg_artefacts,
-                dilate_psf=args.dilate_psf)
-        return eval_steps[b](m, batch, generator)
+            eval_steps[b] = make_ensemble_predict(
+                model, b, estimator, lehe=args.LEHE, **remedies)
+        dets, gt, index = eval_steps[b](specialists, batch, generator)
+        choices.append(index)
+        return dets, gt
 
     stats, _ = evaluate_coco(eval_step, model, loader, dataset_val.index,
                              expand_target_boxes=expand,
                              early_stop=args.early_stop)
     print(f"model buckets met: {len(met)} {sorted(met)}")
+    if choices:
+        counts = torch.bincount(torch.stack(choices).cpu(), minlength=4)
+        print(f"ensemble specialists chosen (images each): {counts.tolist()}")
     return stats
 
 
@@ -107,22 +188,37 @@ def main(argv=None):
     parser = eval_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
+    check_remedy_flags(args)
     device = resolve_device(args.device)
     np.random.seed(1337)
 
-    model = build_model(args, device)
-    path = args.resume or args.start_from_weights
-    if path:
-        load_params(model, path)
+    ensemble = None
+    if args.use_ensemble:
+        models = [load_params(build_model(args, device), p)
+                  for p in args.ensemble_model_paths]
+        specialists = stack_specialists(models)
+        model = models[0]
+        del models
+        estimator = (load_estimator(args.blur_estimator_path,
+                                    4 if args.LEHE else 16, device)
+                     if args.blur_estimator_path else None)
+        ensemble = (specialists, estimator)
     else:
-        print("no checkpoint given; evaluating random weights")
+        model = build_model(args, device)
+        path = args.resume or args.start_from_weights
+        if path:
+            load_params(model, path)
+        else:
+            print("no checkpoint given; evaluating random weights")
+    deblurrer = (load_deblurrer(args.deblurer_model_location, device)
+                 if args.deblur_first else None)
+    cell = functools.partial(run_cell, ensemble=ensemble, deblurrer=deblurrer)
     dataset_val = get_coco(args.data_path, "val")
 
     writer = ScalarWriter(args.tensorboard_path)
     try:
         if args.vanilla_eval or not args.blur_eval:
-            stats = run_cell(args, model, dataset_val, BlurPolicy(prob=0.0),
-                             None)
+            stats = cell(args, model, dataset_val, BlurPolicy(prob=0.0), None)
             for name, value in zip(BLUR_STAT_TAGS, stats[:12]):
                 writer.add_scalar(f"Normal/{name}", float(value), 0)
             return stats
@@ -152,8 +248,8 @@ def main(argv=None):
             for fi, fraction in enumerate(EVAL_FRACTIONS[1:], start=1):
                 policy = BlurPolicy(prob=1.0, blur_type=param,
                                     blur_exposure=fraction)
-                stats = run_cell(args, model, dataset_val, policy, bank,
-                                 step_cache=step_cache)
+                stats = cell(args, model, dataset_val, policy, bank,
+                             step_cache=step_cache)
                 all_stats[(pi, fi)] = stats
                 for name, value in zip(BLUR_STAT_TAGS, stats[:12]):
                     writer.add_scalar(f"P{pi}/{name}", float(value), fi)

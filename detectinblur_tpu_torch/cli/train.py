@@ -14,7 +14,8 @@ The in-detector remedies follow their flags: ``--warp_in_model``,
 BatchNorms in ``train`` mode, also in the evals), ``--add_noise``,
 ``--add_block``, ``--add_jpeg_artefacts`` and the AugMix flags. Flags the
 port does not have yet raise ``NotImplementedError`` (``cli/args.py``);
-DDP training (``--world-size`` > 1) is among them.
+DDP training (``--world-size`` > 1) is among them. So do the flags of
+deblur-first and of the ensemble, which only ``cli.evaluate`` reads.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from detectinblur_tpu_torch.cli.args import (
+    EVAL_ONLY,
     bn_mode_for,
     refuse_unported,
     train_parser,
@@ -106,7 +108,7 @@ def main(argv=None) -> TrainRun:
     """Train as the reference's train.py does."""
     parser = train_parser()
     args = parser.parse_args(argv)
-    refuse_unported(parser, args)
+    refuse_unported(parser, args, not_read=EVAL_ONLY)
     device = resolve_device(args.device)
     np.random.seed(1337)
 

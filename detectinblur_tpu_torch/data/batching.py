@@ -109,6 +109,7 @@ def build_blur_batch(
     blurring = np.zeros(B, bool)
     param_index = np.full(B, -1, np.int32)
     fraction_index = np.full(B, -1, np.int32)
+    est_label = np.full(B, -1, np.int32)
     gt_boxes = np.zeros((B, max_gt, 4), np.float32)
     gt_labels = np.zeros((B, max_gt), np.int64)
     gt_valid = np.zeros((B, max_gt), bool)
@@ -128,6 +129,7 @@ def build_blur_batch(
         gt_boxes[i, :n] = item["boxes"][:n]
         gt_labels[i, :n] = item["labels"][:n]
         gt_valid[i, :n] = True
+        est_label[i] = item.get("blur_est_label", -1)
         if dec.blurring and dec.fraction_index >= 0 and psf_bank is not None:
             blurring[i] = True
             param_index[i] = dec.param_index
@@ -140,4 +142,4 @@ def build_blur_batch(
     return BlurBatch(*(torch.from_numpy(a) for a in (
         images, hw, psfs, blurring, gt_boxes, gt_labels, gt_valid,
         np.zeros(B, np.float32), np.ones(B, np.float32),
-        np.ones(B, np.float32), param_index, fraction_index)))
+        np.ones(B, np.float32), param_index, fraction_index, est_label)))

@@ -25,6 +25,10 @@ import torch
 
 from detectinblur_tpu_torch.ops.psf import BLUR_FRACTIONS, BLUR_PARAMS, sample_psf
 
+# The reference's LEHE weights are joint shares (they sum to the blur
+# share 1 - 0.0625), so the fraction draw divides them by their sum: no
+# blur 6.25%, each low exposure 6.25%, each high exposure 37.5%. JAX
+# passes them to rng.choice as they are, which raises.
 LEHE_FRACTION_WEIGHTS = (0.0625, 0.0625, 0.0625, 0.375, 0.375)
 
 
@@ -67,7 +71,8 @@ def sample_blur_decision(rng: np.random.Generator, policy: BlurPolicy,
     elif policy.low_exposure:
         fraction_index = int(rng.integers(0, 3))
     elif policy.lehe_blur_seg:
-        fraction_index = int(rng.choice(5, p=LEHE_FRACTION_WEIGHTS))
+        w = np.asarray(LEHE_FRACTION_WEIGHTS)
+        fraction_index = int(rng.choice(5, p=w / w.sum()))
     else:
         fraction_index = int(rng.integers(0, 5))
 

@@ -18,13 +18,17 @@ the update only while the module is in training mode (the detector's
 ``loss``): JAX threads the new statistics out of ``loss`` and drops them
 in ``predict``.
 
-The affine (``scale``, ``bias``) is a pair of buffers, as the port's
-FrozenBatchNorm keeps it: the JAX freeze mask never trains a BatchNorm
-affine of the backbone, whatever the mode. ``running_mean``,
-``running_var`` and ``num_batches_tracked`` are float32 buffers.
+The affine (``scale``, ``bias``) is a pair of float32 parameters, as in
+JAX: the detector's freeze mask (``train/state.py``) keeps them fixed,
+the blur estimator trains them. ``running_mean``, ``running_var`` and
+``num_batches_tracked`` are float32 buffers. As in JAX, the output is
+computed in float32 from the statistics and the affine, so bfloat16
+activations come out float32 (the next convolution casts them back).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -39,8 +43,8 @@ class AdaptiveBatchNorm(nn.Module):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         self.mode, self.eps, self.momentum = mode, eps, momentum
-        self.register_buffer("scale", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.zeros(()))
@@ -78,9 +82,9 @@ class AdaptiveBatchNorm(nn.Module):
                 use_v = sf * self.running_var + bf * v
         inv = torch.rsqrt(use_v + self.eps)
         shape = (1, -1, 1, 1)
-        return ((x - use_m.to(x.dtype).view(shape)) * inv.to(x.dtype).view(shape)
-                * self.scale.to(x.dtype).view(shape)
-                + self.bias.to(x.dtype).view(shape))
+        # Float32 statistics and affine promote the activations, as in JAX.
+        return ((x - use_m.view(shape)) * inv.view(shape)
+                * self.scale.view(shape) + self.bias.view(shape))
 
 
 def set_num_batches_tracked(module: nn.Module, value: float) -> None:
@@ -89,3 +93,33 @@ def set_num_batches_tracked(module: nn.Module, value: float) -> None:
     for m in module.modules():
         if isinstance(m, AdaptiveBatchNorm):
             m.num_batches_tracked.fill_(value)
+
+
+@contextlib.contextmanager
+def bn_mode(module: nn.Module, mode: str):
+    """Every ``AdaptiveBatchNorm`` of ``module`` in ``mode`` while open
+    (the blur estimator's eval step: JAX clones it with ``bn_mode="eval"``)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    norms = [m for m in module.modules() if isinstance(m, AdaptiveBatchNorm)]
+    saved = [m.mode for m in norms]
+    for m in norms:
+        m.mode = mode
+    try:
+        yield module
+    finally:
+        for m, old in zip(norms, saved):
+            m.mode = old
+
+
+@contextlib.contextmanager
+def training_mode(module: nn.Module):
+    """``module`` in training mode while open: its BatchNorms of the
+    ``train`` and ``acclimation`` modes write their running-statistics
+    updates."""
+    was = module.training
+    module.train(True)
+    try:
+        yield module
+    finally:
+        module.train(was)

@@ -15,7 +15,11 @@ edge, which is the same thing.
 
 Per-image means and stds [B, 3] (the blur-conditional normalization of
 ``ops/normalization.py``) replace the ImageNet constants when given.
-``normalize=False`` and ``crop_images=True`` are not ported yet.
+``crop_images=True`` batches by cropping every image to the smallest
+resized extent floored to /32 (the blur estimator's input). The blur
+estimator's own resize round trip uses ``resize_into_bucket`` and
+``resize_valid`` one image at a time. ``normalize=False`` is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -47,19 +51,50 @@ def resize_scale(h, w, min_size: int, max_size: int) -> np.ndarray:
 
 def resized_valid_hw(hw, out_shape: Tuple[int, int], min_size: int = 800,
                      max_size: int = 1333) -> np.ndarray:
-    """New valid sizes [B, 2] inside the ``out_shape`` bucket
-    (``resize_into_bucket`` :83): output size = floor(size * scale), the
-    scale shrunk (aspect kept) if the image would overflow the bucket."""
+    """New valid sizes [B, 2] inside the ``out_shape`` bucket after the
+    min/max-side resize (``bucket_hw``)."""
+    return np.asarray([bucket_hw((h, w), resize_scale(h, w, min_size,
+                                                      max_size), out_shape)
+                       for h, w in _host_hw(hw)], np.int64).reshape(-1, 2)
+
+
+def bucket_hw(hw, scale, out_shape: Tuple[int, int]) -> Tuple[int, int]:
+    """The valid size (``resize_into_bucket`` :83) of an image of size
+    ``hw`` resized by ``scale`` into the ``out_shape`` bucket, in float32:
+    floor(size * scale), the scale first shrunk (aspect kept) so the image
+    fits the bucket."""
     Ho, Wo = out_shape
-    out = []
-    for h, w in _host_hw(hw):
-        hf, wf = np.float32(h), np.float32(w)
-        scale = resize_scale(h, w, min_size, max_size)
-        scale = np.minimum(scale, np.minimum(np.float32(Ho) / hf,
-                                             np.float32(Wo) / wf))
-        out.append((min(int(np.floor(hf * scale)), Ho),
-                    min(int(np.floor(wf * scale)), Wo)))
-    return np.asarray(out, np.int64)
+    hf, wf = np.float32(hw[0]), np.float32(hw[1])
+    scale = np.minimum(np.float32(scale),
+                       np.minimum(np.float32(Ho) / hf, np.float32(Wo) / wf))
+    return (min(int(np.floor(hf * scale)), Ho),
+            min(int(np.floor(wf * scale)), Wo))
+
+
+def resize_valid(image: torch.Tensor, hw, new_hw,
+                 out_shape: Tuple[int, int]) -> torch.Tensor:
+    """Resize the valid [h, w] region of ``image`` [Hb0, Wb0, C] (at its
+    top-left) to exactly ``new_hw`` inside a zero [Ho, Wo, C] bucket, torch
+    bilinear with ``align_corners=False`` (``resize_valid`` :43); sizes
+    are host integers."""
+    (h, w), (nh, nw) = (int(v) for v in hw), (int(v) for v in new_hw)
+    out = image.new_zeros(*out_shape, image.shape[-1], dtype=torch.float32)
+    out[:nh, :nw] = _resize(image[:h, :w].float(), nh, nw)
+    return out
+
+
+def _resize(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """[h, w, C] -> [nh, nw, C], torch bilinear, ``align_corners=False``."""
+    return F.interpolate(img.permute(2, 0, 1)[None], size=(nh, nw),
+                         mode="bilinear", align_corners=False)[0].permute(1, 2, 0)
+
+
+def resize_into_bucket(image: torch.Tensor, hw, scale,
+                       out_shape: Tuple[int, int]):
+    """Resize the valid region by ``scale`` into a zero bucket
+    (``resize_into_bucket`` :83) -> (image [Ho, Wo, C], new (h, w))."""
+    new_hw = bucket_hw(hw, scale, out_shape)
+    return resize_valid(image, hw, new_hw, out_shape), new_hw
 
 
 def normalize_image(image: torch.Tensor, mean=None, std=None) -> torch.Tensor:
@@ -91,9 +126,12 @@ def preprocess_batch(
     max_size: int = 1333,
     means: Optional[torch.Tensor] = None,   # [B, 3] per-image overrides
     stds: Optional[torch.Tensor] = None,
+    crop_images: bool = False,
 ):
     """Batched normalize + resize into the model bucket, each image
-    normalized with its row of ``means`` and ``stds`` when given.
+    normalized with its row of ``means`` and ``stds`` when given. With
+    ``crop_images`` everything beyond the smallest resized extent, floored
+    to /32, is zeroed and every image reports that size (JAX :167-174).
 
     Returns (batched [B, Ho, Wo, 3] float32, new_hw [B, 2] int64 on the
     images' device).
@@ -110,7 +148,10 @@ def preprocess_batch(
         img = normalize_image(images[b, :h, :w].float(),
                               None if means is None else means[b],
                               None if stds is None else stds[b])
-        resized = F.interpolate(img.permute(2, 0, 1)[None], size=(nh, nw),
-                                mode="bilinear", align_corners=False)
-        out[b, :nh, :nw] = resized[0].permute(1, 2, 0)
+        out[b, :nh, :nw] = _resize(img, nh, nw)
+    if crop_images:
+        mh, mw = (int(v) // 32 * 32 for v in new_hw.min(axis=0))
+        out[:, mh:] = 0.0
+        out[:, :, mw:] = 0.0
+        new_hw = np.tile(np.asarray([[mh, mw]], np.int64), (B, 1))
     return out, torch.as_tensor(new_hw, device=device)

@@ -40,13 +40,13 @@ as the mode says and writes nothing, as JAX drops the update there.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.profiler import record_function
 
+from detectinblur_tpu_torch.models.batchnorm import training_mode
 from detectinblur_tpu_torch.models.detection_transform import (
     preprocess_batch,
     resize_boxes,
@@ -104,18 +104,6 @@ class LossDraws(NamedTuple):
     u_neg), each [B, P + G] (P the train post-NMS proposal count)."""
     rpn: Tuple[torch.Tensor, torch.Tensor]
     roi: Tuple[torch.Tensor, torch.Tensor]
-
-
-@contextlib.contextmanager
-def _training(module: nn.Module):
-    """``module`` in training mode while open: its BatchNorms write their
-    running-statistics updates."""
-    was = module.training
-    module.train(True)
-    try:
-        yield
-    finally:
-        module.train(was)
 
 
 class FasterRCNN(nn.Module):
@@ -254,6 +242,11 @@ class FasterRCNN(nn.Module):
         with record_function("predict.head_postprocess"):
             return self.detect(pooled, proposals, valid, new_hw, hw)
 
+    def forward(self, *args, **kwargs) -> Detections:
+        """``predict``: ``torch.func.functional_call`` calls ``forward``,
+        and the ensemble runs each specialist's weights through it."""
+        return self.predict(*args, **kwargs)
+
     # ------------------------------------------------------------ training
     def loss(self, images: torch.Tensor, hw, gt_boxes: torch.Tensor,
              gt_labels: torch.Tensor, gt_valid: torch.Tensor,
@@ -287,7 +280,7 @@ class FasterRCNN(nn.Module):
         gt_labels = gt_labels.to(device)
         gt_valid = gt_valid.to(device).bool()
 
-        with _training(self.backbone):
+        with training_mode(self.backbone):
             feats = self.features(batched, thetas, lam1s, lam2s)
         rpn = run_rpn(self.rpn_head, feats, new_hw, cfg.rpn,
                       anchors=self.level_anchors(feats), training=True)

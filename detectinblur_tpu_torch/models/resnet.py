@@ -1,4 +1,5 @@
-"""ResNet50-FPN backbone in torch (port of ``detectinblur_tpu/models/resnet.py``).
+"""ResNet trunks and the ResNet50-FPN backbone in torch (port of
+``detectinblur_tpu/models/resnet.py``).
 
 Module names mirror the JAX param tree (``body.layer1_0.conv1``,
 ``fpn.inner_0`` ...) so ``utils/convert.py`` maps it key for key.
@@ -11,11 +12,16 @@ as buffers; a fresh module is the identity. With ``bn_mode`` set, the
 backbone's BatchNorms are ``models/batchnorm.AdaptiveBatchNorm`` in that
 mode instead (the JAX ``norm`` argument, :135,164,197,260).
 
+The trunk is the JAX arch table's ``resnet50`` (``Bottleneck``) or
+``resnet18`` (``BasicBlock``, the blur estimator's, :160,181).
+
 Parameters stay float32 in every precision; ``Conv2d`` and ``Linear`` cast
-their weights to the dtype of their input on each call, as the JAX modules'
-``dtype=ACT_DTYPE`` does, so throughput mode computes in bfloat16 while SGD
-updates float32 weights (a bfloat16 weight would round a warmup-sized
-update away).
+their weights to the dtype they compute in on each call, as the JAX
+modules' ``dtype=ACT_DTYPE`` does, so throughput mode computes in bfloat16
+while SGD updates float32 weights (a bfloat16 weight would round a
+warmup-sized update away). A ``Conv2d`` whose ``compute_dtype`` is set
+casts its input to it first, as each JAX ``nn.Conv`` does: under
+``AdaptiveBatchNorm`` the activations between convolutions are float32.
 
 Initialisation follows the JAX initialisers (resnet.py:59-82):
 kaiming-normal fan_out for the trunk convs, kaiming-uniform a=1 for the
@@ -33,14 +39,18 @@ from torch import nn
 
 from detectinblur_tpu_torch.models.batchnorm import AdaptiveBatchNorm
 
-RESNET50_LAYERS = (3, 4, 6, 3)
 _WIDTHS = (64, 128, 256, 512)
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in its input's dtype (float32 parameters)."""
+    """``nn.Conv2d`` computing in ``compute_dtype``, or in its input's
+    dtype while that is None (float32 parameters)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x):
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
@@ -98,14 +108,75 @@ class Bottleneck(nn.Module):
         return F.relu(y + identity)
 
 
-class ResNet(nn.Module):
-    """torchvision-layout ResNet50 trunk returning (C2, C3, C4, C5), NCHW
-    channels-last."""
+class BasicBlock(nn.Module):
+    expansion = 1
 
-    def __init__(self, layers: Sequence[int] = RESNET50_LAYERS,
+    def __init__(self, cin: int, width: int, stride: int = 1,
                  norm: Callable[[int], nn.Module] = FrozenBatchNorm):
         super().__init__()
-        self.layers = tuple(layers)
+        self.conv1 = _conv(cin, width, 3, stride)
+        self.bn1 = norm(width)
+        self.conv2 = _conv(width, width, 3)
+        self.bn2 = norm(width)
+        self.downsample_0: Optional[Conv2d] = None
+        if cin != width or stride != 1:
+            self.downsample_0 = _conv(cin, width, 1, stride)
+            self.downsample_1 = norm(width)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        identity = x
+        if self.downsample_0 is not None:
+            identity = self.downsample_1(self.downsample_0(x))
+        return F.relu(y + identity)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Every ``Conv2d`` of ``module`` computes in ``dtype`` (JAX's
+    ``ACT_DTYPE``), whatever dtype its input arrives in."""
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = dtype
+
+
+def reset_trunk(module: nn.Module, generator: torch.Generator,
+                skip: str = "fpn.") -> None:
+    """The JAX initialisers of a ResNet trunk: kaiming-normal fan_out
+    convolutions (except those under ``skip``), identity BatchNorms with
+    fresh running statistics."""
+    with torch.no_grad():
+        for name, m in module.named_modules():
+            if isinstance(m, nn.Conv2d) and not name.startswith(skip):
+                nn.init.kaiming_normal_(m.weight, mode="fan_out",
+                                        nonlinearity="relu",
+                                        generator=generator)
+            elif isinstance(m, (FrozenBatchNorm, AdaptiveBatchNorm)):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
+                if isinstance(m, AdaptiveBatchNorm):
+                    m.running_mean.zero_()
+                    m.running_var.fill_(1.0)
+                    m.num_batches_tracked.zero_()
+
+
+# arch -> (block, blocks per stage), the JAX RESNET_SPECS rows ported.
+RESNET_SPECS = {
+    "resnet18": (BasicBlock, (2, 2, 2, 2)),
+    "resnet50": (Bottleneck, (3, 4, 6, 3)),
+}
+
+
+class ResNet(nn.Module):
+    """torchvision-layout ResNet trunk (``arch`` a ``RESNET_SPECS`` key)
+    returning (C2, C3, C4, C5), NCHW channels-last."""
+
+    def __init__(self, arch: str = "resnet50",
+                 norm: Callable[[int], nn.Module] = FrozenBatchNorm):
+        super().__init__()
+        block, layers = RESNET_SPECS[arch]
+        self.layers = layers
+        self.out_channels = tuple(w * block.expansion for w in _WIDTHS)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = norm(64)
         cin = 64
@@ -113,8 +184,8 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 stride = 2 if (b == 0 and i > 0) else 1
                 self.add_module(f"layer{i + 1}_{b}",
-                                Bottleneck(cin, width, stride, norm))
-                cin = width * Bottleneck.expansion
+                                block(cin, width, stride, norm))
+                cin = width * block.expansion
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
         x = F.relu(self.bn1(self.conv1(x)))
@@ -167,6 +238,7 @@ class ResNetFPN(nn.Module):
                 else functools.partial(AdaptiveBatchNorm, mode=bn_mode))
         self.body = ResNet(norm=norm)
         self.fpn = FPN(out_channels=out_channels)
+        set_compute_dtype(self, act_dtype)
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = images.to(self.act_dtype).permute(0, 3, 1, 2)  # channels-last NCHW
@@ -175,20 +247,9 @@ class ResNetFPN(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        for name, m in self.named_modules():
+        # The body's draws come first, then the FPN's, in module order.
+        reset_trunk(self, generator, skip="fpn.")
+        for m in self.fpn.modules():
             if isinstance(m, nn.Conv2d):
-                if name.startswith("fpn."):
-                    nn.init.kaiming_uniform_(m.weight, a=1,
-                                             generator=generator)
-                    nn.init.zeros_(m.bias)
-                else:
-                    nn.init.kaiming_normal_(m.weight, mode="fan_out",
-                                            nonlinearity="relu",
-                                            generator=generator)
-            elif isinstance(m, (FrozenBatchNorm, AdaptiveBatchNorm)):
-                m.scale.fill_(1.0)
-                m.bias.zero_()
-                if isinstance(m, AdaptiveBatchNorm):
-                    m.running_mean.zero_()
-                    m.running_var.fill_(1.0)
-                    m.num_batches_tracked.zero_()
+                nn.init.kaiming_uniform_(m.weight, a=1, generator=generator)
+                nn.init.zeros_(m.bias)

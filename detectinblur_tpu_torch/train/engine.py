@@ -17,8 +17,9 @@ JPEG corruptions after the blur, and in evaluation PSF dilation
 BatchNorm modes are the model's (``FasterRCNNConfig.bn_mode``); their
 running statistics are buffers that the train step's loss updates in
 place, where JAX threads a ``bn_stats`` tree. Random draws come from the
-step's ``generator`` unless the caller injects them. Deblur-first is not
-ported yet and raises ``NotImplementedError``.
+step's ``generator`` unless the caller injects them. In evaluation,
+deblur-first runs a ``models.deblur.MSResNet`` on every image after the
+blur and the corruptions (``deblurrer``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 from torch.profiler import record_function
 
+from detectinblur_tpu_torch.models.deblur import MSResNet, deblur_image
 from detectinblur_tpu_torch.ops.blur import batched_blur
 from detectinblur_tpu_torch.ops.boxes import expand_boxes_by_psf
 from detectinblur_tpu_torch.ops.normalization import get_norm_params
@@ -42,9 +44,9 @@ from detectinblur_tpu_torch.utils.device import DEFAULT_PRECISION
 
 
 class BlurBatch(NamedTuple):
-    """Fixed-shape batch, the JAX ``BlurBatch`` as tensors, without the
-    estimator's stored label. The remedies' fields come last and may be
-    None in a batch made by hand (the loader fills them)."""
+    """Fixed-shape batch, the JAX ``BlurBatch`` as tensors. The remedies'
+    and the estimator's fields come last and may be None in a batch made
+    by hand (the loader fills them)."""
 
     images: torch.Tensor       # [B, Hb, Wb, 3] 0..1 float (or uint8), top-left
     hw: torch.Tensor           # [B, 2] valid sizes
@@ -58,6 +60,9 @@ class BlurBatch(NamedTuple):
     lam2s: Optional[torch.Tensor] = None
     param_index: Optional[torch.Tensor] = None     # [B] int32, -1 when N/A
     fraction_index: Optional[torch.Tensor] = None  # [B] int32, -1 negligible
+    # The estimator's stored class label (natural-blur estimator data);
+    # -1 = derive it from the blur struct.
+    est_label: Optional[torch.Tensor] = None       # [B] int32
 
 
 def to_device(batch: BlurBatch, device) -> BlurBatch:
@@ -65,12 +70,6 @@ def to_device(batch: BlurBatch, device) -> BlurBatch:
     preprocess and the model bucket read it."""
     return BlurBatch(*(t if name == "hw" or t is None else t.to(device)
                        for name, t in zip(BlurBatch._fields, batch)))
-
-
-def _refuse(**options) -> None:
-    asked = sorted(k for k, v in options.items() if v)
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
 
 
 def images01(batch: BlurBatch) -> BlurBatch:
@@ -132,7 +131,7 @@ def _blur_norms(batch: BlurBatch, use_custom_norm: bool):
                            batch.fraction_index)
 
 
-def _remedy_kwargs(batch: BlurBatch, use_warp: bool, use_custom_norm: bool):
+def remedy_kwargs(batch: BlurBatch, use_warp: bool, use_custom_norm: bool):
     """The keyword arguments of ``predict`` / ``loss`` for the remedies."""
     means, stds = _blur_norms(batch, use_custom_norm)
     kw = dict(means=means, stds=stds)
@@ -173,7 +172,7 @@ def make_train_step(model, schedule: Callable[[int], float],
         losses = model.loss(batch.images, batch.hw, batch.gt_boxes,
                             batch.gt_labels, batch.gt_valid, bucket,
                             generator=generator, draws=draws,
-                            **_remedy_kwargs(batch, use_warp, use_custom_norm))
+                            **remedy_kwargs(batch, use_warp, use_custom_norm))
         total = sum(losses.values())
         optimizer = state.optimizer
         optimizer.zero_grad(set_to_none=True)
@@ -197,13 +196,15 @@ def prepare_eval_batch(batch: BlurBatch,
                        add_block: bool = False, add_jpeg: bool = False,
                        dilate_psf: bool = False, use_warp: bool = False,
                        dilate_psf_sigma: Optional[torch.Tensor] = None,
-                       corruption_draws: Optional[CorruptionDraws] = None
-                       ) -> BlurBatch:
+                       corruption_draws: Optional[CorruptionDraws] = None,
+                       deblurrer: Optional[MSResNet] = None) -> BlurBatch:
     """The eval preamble in the JAX order: images to float 0..1; with
     ``blur_eval`` the PSF dilation (sigma U(0, 3) per image, or
     ``dilate_psf_sigma``), the device blur, the corruptions and the GT
-    expansion; then, with ``use_warp``, the warp parameters. Draws come
-    from ``generator`` unless injected."""
+    expansion; with a ``deblurrer``, deblur-first on every image of the
+    batch (its whole canvas, as JAX vmaps it); then, with ``use_warp``,
+    the warp parameters. Draws come from ``generator`` unless injected.
+    The single-model and the ensemble eval both run through here."""
     batch = images01(batch)
     if blur_eval:
         sigma = dilate_psf_sigma
@@ -216,6 +217,8 @@ def prepare_eval_batch(batch: BlurBatch,
             add_noise=add_noise, noise_level=noise_level, add_block=add_block,
             add_jpeg=add_jpeg, dilate_psf_sigma=sigma if dilate_psf else None,
             generator=generator, corruption_draws=corruption_draws)
+    if deblurrer is not None:
+        batch = batch._replace(images=deblur_image(deblurrer, batch.images))
     if use_warp:
         batch = derive_warp_params(batch)
     return batch
@@ -223,7 +226,8 @@ def prepare_eval_batch(batch: BlurBatch,
 
 def make_eval_step(model, bucket: Tuple[int, int], blur_eval: bool = False,
                    expand_target_boxes: bool = False, use_warp: bool = False,
-                   use_custom_norm: bool = False, deblur_first: bool = False,
+                   use_custom_norm: bool = False,
+                   deblurrer: Optional[MSResNet] = None,
                    add_noise: bool = False, noise_level: float = 0.001,
                    add_block: bool = False, add_jpeg: bool = False,
                    dilate_psf: bool = False):
@@ -233,9 +237,9 @@ def make_eval_step(model, bucket: Tuple[int, int], blur_eval: bool = False,
     goes through ``prepare_eval_batch`` and ``model.predict`` with the
     remedies asked for; ``gt_boxes`` are the (expanded) GT boxes. The
     first two run in the profiler ranges ``eval.to_device`` and
-    ``eval.blur_expand``. ``generator`` (on the model's device) is the
-    randomness of the PSF dilation and the corruptions."""
-    _refuse(deblur_first=deblur_first)
+    ``eval.blur_expand`` (deblur-first included). ``generator`` (on the
+    model's device) is the randomness of the PSF dilation and the
+    corruptions."""
 
     @torch.no_grad()
     def step(model_, batch: BlurBatch,
@@ -254,9 +258,9 @@ def make_eval_step(model, bucket: Tuple[int, int], blur_eval: bool = False,
                 noise_level=noise_level, add_block=add_block,
                 add_jpeg=add_jpeg, dilate_psf=dilate_psf, use_warp=use_warp,
                 dilate_psf_sigma=dilate_psf_sigma,
-                corruption_draws=corruption_draws)
+                corruption_draws=corruption_draws, deblurrer=deblurrer)
         dets = model.predict(batch.images, batch.hw, bucket,
-                             **_remedy_kwargs(batch, use_warp,
+                             **remedy_kwargs(batch, use_warp,
                                               use_custom_norm))
         return dets, batch.gt_boxes
 

@@ -59,15 +59,21 @@ def _freeze_mask(model: nn.Module, trainable_backbone_layers: int = 3
                  ) -> Dict[str, bool]:
     """Parameter name -> trainable. With 3 trainable stages (torchvision's
     ``trainable_backbone_layers``) the stem (conv1, bn1) and layer1 are
-    frozen; layer2..4, the FPN and the heads train. The FrozenBN affines
-    are buffers here, never parameters."""
+    frozen; layer2..4, the FPN and the heads train. The BatchNorm affines
+    of the body stay frozen in every stage, as JAX's mask keeps them
+    (:70): they are parameters of an ``AdaptiveBatchNorm`` (the
+    FrozenBatchNorm keeps them as buffers)."""
     frozen = ["conv1", "bn1"] if trainable_backbone_layers < 5 else []
     frozen += [f"layer{i}" for i in range(1, 5 - trainable_backbone_layers)]
     mask = {}
     for name, _ in model.named_parameters():
         keys = name.split(".")
-        mod = keys[2] if keys[:2] == ["backbone", "body"] else ""
-        mask[name] = not (mod in frozen or mod.split("_")[0] in frozen)
+        body = keys[:2] == ["backbone", "body"]
+        mod = keys[2] if body else ""
+        norm = body and any(k.startswith(("bn", "downsample_1"))
+                            for k in keys[2:])
+        mask[name] = not (norm or mod in frozen
+                          or mod.split("_")[0] in frozen)
     return mask
 
 

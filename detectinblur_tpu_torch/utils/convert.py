@@ -24,6 +24,17 @@ are named after that tree, so each leaf maps by its path:
     ``mean`` / ``var`` / ``num_batches_tracked`` leaf to the
     ``running_mean`` / ``running_var`` / ``num_batches_tracked`` buffer.
 
+The same two routes serve the blur estimator (``ResNetClassifier``):
+``classifier_from_torchvision`` takes a torchvision resnet18 with its
+BatchNorm unfolded and, as the reference replaces ``fc`` by a fresh head,
+leaves ``fc`` out unless asked (JAX ``convert_resnet_classifier_state_dict``,
+utils/torch_convert.py:298); ``classifier_params_from_jax`` maps the JAX
+classifier's ``params`` and ``batch_stats``. ``deepdeblur_from_torch``
+maps a DeepDeblur-PyTorch MSResNet checkpoint onto the port's
+``MSResNet`` (JAX ``convert_deepdeblur_state_dict``, models/deblur.py:153):
+``body_models`` stored fine-first, ``conv_end_models.{s}.uppath.0`` the
+up-convs, the scale and block counts inferred.
+
 Keys and shapes are checked strictly against the port's module tree: a
 missing key, an extra key or a wrong shape raises.
 """
@@ -31,12 +42,12 @@ missing key, an extra key or a wrong shape raises.
 from __future__ import annotations
 
 import argparse
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-RESNET50_LAYERS = (3, 4, 6, 3)
+from detectinblur_tpu_torch.models.resnet import RESNET_SPECS, Bottleneck
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -79,7 +90,17 @@ def expected_shapes(num_classes: int = 91, with_bn_stats: bool = False
 
 def _checked(sd: Dict[str, torch.Tensor], num_classes: int,
              with_bn_stats: bool = False) -> Dict[str, torch.Tensor]:
-    want = expected_shapes(num_classes, with_bn_stats)
+    return _check_shapes(sd, expected_shapes(num_classes, with_bn_stats))
+
+
+def _meta_shapes(module) -> Dict[str, torch.Size]:
+    return {k: v.shape for k, v in module.state_dict().items()}
+
+
+def _check_shapes(sd: Dict[str, torch.Tensor],
+                  want: Mapping[str, torch.Size]) -> Dict[str, torch.Tensor]:
+    """``sd`` if it has exactly the keys of ``want`` with those shapes;
+    else ``KeyError`` (keys) or ``ValueError`` (shapes)."""
     missing = sorted(set(want) - set(sd))
     extra = sorted(set(sd) - set(want))
     if missing or extra:
@@ -103,6 +124,12 @@ def params_from_jax(tree: Mapping, num_classes: int = 91,
     ``batch_stats`` tree, -> float32 state dict for the port's
     ``FasterRCNN``. Raises ``KeyError`` on missing or extra keys and
     ``ValueError`` on a shape mismatch."""
+    return _checked(_from_jax(tree, batch_stats), num_classes,
+                    batch_stats is not None)
+
+
+def _from_jax(tree: Mapping, batch_stats: Optional[Mapping]
+              ) -> Dict[str, torch.Tensor]:
     sd = {}
     for key, value in _flatten(tree).items():
         name, arr = _leaf(key, value)
@@ -111,7 +138,23 @@ def params_from_jax(tree: Mapping, num_classes: int = 91,
         head, _, leaf = key.rpartition(".")
         sd[f"{head}.{_STAT_NAMES[leaf]}"] = torch.from_numpy(
             np.array(value, np.float32, order="C"))
-    return _checked(sd, num_classes, batch_stats is not None)
+    return sd
+
+
+def _classifier_shapes(arch: str, num_classes: int) -> Dict[str, torch.Size]:
+    from detectinblur_tpu_torch.models.classifier import ResNetClassifier
+
+    return _meta_shapes(ResNetClassifier(arch, num_classes, device="meta"))
+
+
+def classifier_params_from_jax(tree: Mapping, batch_stats: Mapping,
+                               arch: str = "resnet18", num_classes: int = 16
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX ``ResNetClassifier``'s ``params`` and ``batch_stats`` trees
+    (numpy leaves) -> float32 state dict for the port's
+    ``ResNetClassifier``, checked strictly as ``params_from_jax``."""
+    return _check_shapes(_from_jax(tree, batch_stats),
+                         _classifier_shapes(arch, num_classes))
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -138,48 +181,9 @@ def params_from_torchvision(sd: Mapping, num_classes: int = 91,
     ``ValueError`` on a shape mismatch. The FrozenBN fold is computed in
     numpy float32 as the JAX converter computes it, so both packages get
     the same bits."""
-    src = {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
-                         else v) for k, v in sd.items()}
-    used = set()
-
-    def get(*names):
-        for n in names:
-            if n in src:
-                used.add(n)
-                return src[n]
-        raise KeyError(f"none of {names} in the state dict")
-
-    out: Dict[str, np.ndarray] = {}
-
-    def fold(dst, prefix):
-        gamma, beta, mean, var = (get(f"{prefix}.{k}") for k in (
-            "weight", "bias", "running_mean", "running_var"))
-        if not frozen_bn:
-            out[f"{dst}.scale"], out[f"{dst}.bias"] = gamma, beta
-            out[f"{dst}.running_mean"], out[f"{dst}.running_var"] = mean, var
-            out[f"{dst}.num_batches_tracked"] = np.float32(num_batches)
-            if f"{prefix}.num_batches_tracked" in src:
-                used.add(f"{prefix}.num_batches_tracked")
-            return
-        scale = gamma / np.sqrt(var + 0.0)
-        out[f"{dst}.scale"] = scale
-        out[f"{dst}.bias"] = beta - mean * scale
-
-    def copy(dst, *names):
-        out[dst] = get(*names)
-
-    body = "backbone.body"
-    copy(f"{body}.conv1.weight", f"{body}.conv1.weight")
-    fold(f"{body}.bn1", f"{body}.bn1")
-    for li, n_blocks in enumerate(RESNET50_LAYERS, start=1):
-        for b in range(n_blocks):
-            p, q = f"{body}.layer{li}_{b}", f"{body}.layer{li}.{b}"
-            for c in (1, 2, 3):
-                copy(f"{p}.conv{c}.weight", f"{q}.conv{c}.weight")
-                fold(f"{p}.bn{c}", f"{q}.bn{c}")
-            if f"{q}.downsample.0.weight" in src:
-                copy(f"{p}.downsample_0.weight", f"{q}.downsample.0.weight")
-                fold(f"{p}.downsample_1", f"{q}.downsample.1")
+    m = _Mapper(sd, frozen_bn, num_batches)
+    copy = m.copy
+    m.trunk("backbone.body", "backbone.body", "resnet50")
     for i in range(4):
         for ours, theirs in (("inner", "inner_blocks"), ("layer", "layer_blocks")):
             for k in ("weight", "bias"):
@@ -196,8 +200,133 @@ def params_from_torchvision(sd: Mapping, num_classes: int = 91,
         for head in ("cls_score", "bbox_pred"):
             copy(f"box_predictor.{head}.{k}",
                  f"roi_heads.box_predictor.{head}.{k}")
-    unused = sorted(set(src) - used)
-    if unused:
-        raise KeyError(f"state dict keys left unused: {unused[:5]}")
-    return _checked({k: torch.from_numpy(np.array(v, np.float32, order="C"))
-                     for k, v in out.items()}, num_classes, not frozen_bn)
+    return _checked(m.result(), num_classes, not frozen_bn)
+
+
+class _Mapper:
+    """Carries named arrays of a source state dict into the port's names,
+    remembering which source keys were used; ``result`` raises on one
+    left unused."""
+
+    def __init__(self, sd: Mapping, frozen_bn: bool = False,
+                 num_batches: float = 0.0, ignore: Tuple[str, ...] = ()):
+        self.src = {k: np.asarray(v.detach().cpu()
+                                  if isinstance(v, torch.Tensor) else v)
+                    for k, v in sd.items() if not k.startswith(ignore)}
+        self.frozen_bn, self.num_batches = frozen_bn, num_batches
+        self.used = set()
+        self.out: Dict[str, np.ndarray] = {}
+
+    def get(self, *names):
+        for n in names:
+            if n in self.src:
+                self.used.add(n)
+                return self.src[n]
+        raise KeyError(f"none of {names} in the state dict")
+
+    def copy(self, dst, *names):
+        self.out[dst] = self.get(*names)
+
+    def fold(self, dst, prefix):
+        """A torchvision BatchNorm: folded into FrozenBatchNorm's (scale,
+        bias) with eps 0, or kept unfolded for an ``AdaptiveBatchNorm``
+        (gamma and beta, the running statistics, ``num_batches``)."""
+        gamma, beta, mean, var = (self.get(f"{prefix}.{k}") for k in (
+            "weight", "bias", "running_mean", "running_var"))
+        out = self.out
+        if not self.frozen_bn:
+            out[f"{dst}.scale"], out[f"{dst}.bias"] = gamma, beta
+            out[f"{dst}.running_mean"], out[f"{dst}.running_var"] = mean, var
+            out[f"{dst}.num_batches_tracked"] = np.float32(self.num_batches)
+            if f"{prefix}.num_batches_tracked" in self.src:
+                self.used.add(f"{prefix}.num_batches_tracked")
+            return
+        scale = gamma / np.sqrt(var + 0.0)
+        out[f"{dst}.scale"] = scale
+        out[f"{dst}.bias"] = beta - mean * scale
+
+    def trunk(self, dst: str, src: str, arch: str) -> None:
+        """A torchvision ResNet trunk under the prefix ``src`` ("" for a
+        classifier's top level) onto the port's at ``dst`` (``layer1.0`` ->
+        ``layer1_0``, ``downsample.0`` -> ``downsample_0``)."""
+        block, layers = RESNET_SPECS[arch]
+        convs = (1, 2, 3) if block is Bottleneck else (1, 2)
+        src = f"{src}." if src else ""
+        self.copy(f"{dst}.conv1.weight", f"{src}conv1.weight")
+        self.fold(f"{dst}.bn1", f"{src}bn1")
+        for li, n_blocks in enumerate(layers, start=1):
+            for b in range(n_blocks):
+                p, q = f"{dst}.layer{li}_{b}", f"{src}layer{li}.{b}"
+                for c in convs:
+                    self.copy(f"{p}.conv{c}.weight", f"{q}.conv{c}.weight")
+                    self.fold(f"{p}.bn{c}", f"{q}.bn{c}")
+                if f"{q}.downsample.0.weight" in self.src:
+                    self.copy(f"{p}.downsample_0.weight",
+                              f"{q}.downsample.0.weight")
+                    self.fold(f"{p}.downsample_1", f"{q}.downsample.1")
+
+    def result(self) -> Dict[str, torch.Tensor]:
+        unused = sorted(set(self.src) - self.used)
+        if unused:
+            raise KeyError(f"state dict keys left unused: {unused[:5]}")
+        return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+                for k, v in self.out.items()}
+
+
+def classifier_from_torchvision(sd: Mapping, arch: str = "resnet18",
+                                num_classes: int = 16,
+                                num_batches: float = 0.0,
+                                include_fc: bool = False
+                                ) -> Dict[str, torch.Tensor]:
+    """A torchvision resnet classifier state dict -> float32 state dict of
+    the port's ``ResNetClassifier`` trunk (``body.*``), BatchNorm unfolded
+    with ``num_batches`` in every ``num_batches_tracked``; with
+    ``include_fc`` the file's ``fc`` too (it must have ``num_classes``
+    rows). Without it the file's ``fc`` is skipped and the result lacks
+    ``fc.*``, which the caller's fresh head supplies. Strict otherwise:
+    a missing, unused or misshapen key raises."""
+    m = _Mapper(sd, num_batches=num_batches,
+                ignore=() if include_fc else ("fc.",))
+    m.trunk("body", "", arch)
+    if include_fc:
+        m.copy("fc.weight", "fc.weight")
+        m.copy("fc.bias", "fc.bias")
+    want = _classifier_shapes(arch, num_classes)
+    if not include_fc:
+        want = {k: v for k, v in want.items() if not k.startswith("fc.")}
+    return _check_shapes(m.result(), want)
+
+
+def deepdeblur_from_torch(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A DeepDeblur-PyTorch MSResNet checkpoint -> float32 state dict of
+    the port's ``MSResNet``: ``body_models.{s}.body.0`` the head of scale
+    ``s`` (0 the finest), ``.body.{b + 1}.body.0`` / ``.body.2`` the convs
+    of block ``b``, ``.body.{n_blocks + 1}`` the tail, and
+    ``conv_end_models.{s}.uppath.0`` the up-conv of scale ``s``. Strict:
+    a missing, unused or misshapen key raises."""
+    from detectinblur_tpu_torch.models.deblur import MSResNet
+
+    m = _Mapper(sd)
+    n_scales = 1 + max(int(k.split(".")[1]) for k in m.src
+                       if k.startswith("body_models."))
+    n_blocks = max(int(k.split(".")[3]) for k in m.src
+                   if k.startswith("body_models.0.body.")) - 1
+
+    def conv(dst, src):
+        for k in ("weight", "bias"):
+            m.copy(f"{dst}.{k}", f"{src}.{k}")
+
+    for s in range(n_scales):
+        body = f"body_models.{s}.body"
+        conv(f"scale{s}.head", f"{body}.0")
+        for b in range(n_blocks):
+            conv(f"scale{s}.block{b}.conv0", f"{body}.{b + 1}.body.0")
+            conv(f"scale{s}.block{b}.conv1", f"{body}.{b + 1}.body.2")
+        conv(f"scale{s}.tail", f"{body}.{n_blocks + 1}")
+        if s > 0:
+            conv(f"up{s}", f"conv_end_models.{s}.uppath.0")
+    out = m.result()
+    head = out["scale0.head.weight"]
+    with torch.device("meta"):
+        net = MSResNet(n_scales, head.shape[0], head.shape[-1], n_blocks)
+    return _check_shapes(out, _meta_shapes(net))

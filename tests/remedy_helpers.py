@@ -1,11 +1,14 @@
-"""Shared inputs of the remedy tests (tests/test_torch_port_remedies*.py):
-test PSFs, the JAX draws as the port's injectable draws, and the small
-detector pair (JAX and port on one torchvision-layout state dict)."""
+"""Shared inputs of the remedy tests (tests/test_torch_port_remedies*.py,
+_estimator.py, _ensemble.py): test PSFs, the JAX draws as the port's
+injectable draws, the small detector pair (JAX and port on one
+torchvision-layout state dict) and the blur estimator's resnet18
+weights."""
 
 import jax
 import numpy as np
 import torch
 
+from synthetic_torch import synthetic_resnet_state_dict
 from torch_reference import make_random_fasterrcnn_sd
 
 from detectinblur_tpu.models.faster_rcnn import FasterRCNN as JaxFasterRCNN
@@ -167,3 +170,23 @@ def match(ours, ref):
               & (np.abs(rs - os_[best]) < 2e-3))
         shares.append(ok.mean())
     return shares
+
+
+def resnet18_sd(num_classes=16, seed=0):
+    """torchvision resnet18 layout, convolutions He-scaled, BatchNorms
+    near the identity, a small fc."""
+    sd = synthetic_resnet_state_dict("resnet18", num_classes=num_classes,
+                                     seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    for k, v in sd.items():
+        if v.ndim == 4:
+            sd[k] = v * np.float32(np.sqrt(2.0 / np.prod(v.shape[1:])))
+        elif k.endswith(("bn1.weight", "bn2.weight", "downsample.1.weight")):
+            sd[k] = rng.uniform(0.8, 1.2, v.shape).astype(np.float32)
+        elif k.endswith(("bias", "running_mean")) and not k.startswith("fc"):
+            sd[k] = (0.05 * v).astype(np.float32)
+        elif k.endswith("running_var"):
+            sd[k] = rng.uniform(0.8, 1.2, v.shape).astype(np.float32)
+        elif k == "fc.weight":
+            sd[k] = (v / np.sqrt(v.shape[1])).astype(np.float32)
+    return sd

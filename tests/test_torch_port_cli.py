@@ -17,11 +17,18 @@ import numpy as np
 import pytest
 import torch
 
+from remedy_helpers import resnet18_sd
 from synthetic_coco import write_coco
+from synthetic_torch import synthetic_deepdeblur_state_dict
 from torch_reference import make_random_fasterrcnn_sd
 
 import detectinblur_tpu.cli.evaluate as jax_cli_eval
+import detectinblur_tpu.cli.train_blur_estimator as jax_cli_est
 import detectinblur_tpu.data.batching as jax_batching
+import detectinblur_tpu.utils.torch_convert as jax_torch_convert
+from detectinblur_tpu.models.classifier import (
+    ResNetClassifier as JaxResNetClassifier,
+)
 from detectinblur_tpu.models.faster_rcnn import FasterRCNN as JaxFasterRCNN
 from detectinblur_tpu.models.faster_rcnn import (
     FasterRCNNConfig as JaxFasterRCNNConfig,
@@ -31,8 +38,10 @@ from detectinblur_tpu.models.rpn import RPNConfig as JaxRPNConfig
 from detectinblur_tpu.utils.torch_convert import convert_fasterrcnn_state_dict
 import detectinblur_tpu_torch.cli.evaluate as cli_eval
 import detectinblur_tpu_torch.cli.train as cli_train
+import detectinblur_tpu_torch.cli.train_blur_estimator as cli_est
 import detectinblur_tpu_torch.data.batching as batching
-from detectinblur_tpu_torch.cli.args import UNPORTED, bn_mode_for
+from detectinblur_tpu_torch.cli.args import EVAL_ONLY, UNPORTED, bn_mode_for
+from detectinblur_tpu_torch.models.classifier import ResNetClassifier
 from detectinblur_tpu_torch.models.faster_rcnn import (
     FasterRCNN,
     FasterRCNNConfig,
@@ -41,6 +50,7 @@ from detectinblur_tpu_torch.models.roi_heads import BoxHeadConfig
 from detectinblur_tpu_torch.models.rpn import RPNConfig
 from detectinblur_tpu_torch.train.eval_loop import evaluate_coco
 from detectinblur_tpu_torch.utils.convert import (
+    classifier_from_torchvision,
     load_torch_state_dict,
     params_from_jax,
     params_from_torchvision,
@@ -75,6 +85,39 @@ def pth(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def ensemble_files(tmp_path_factory):
+    """Four specialist .pth files (the random weights of ``pth``, whose
+    detections score, each with its box predictor moved by 5% noise from
+    its own seed, so that each scores differently), the port's LEHE
+    estimator checkpoint (a bare state dict, running statistics included)
+    made from one resnet18 state dict, that state dict, and a DeepDeblur
+    .pth (3 scales, 8 features, 2 blocks)."""
+    d = tmp_path_factory.mktemp("ensemble")
+    paths = []
+    for seed in range(4):
+        sd = make_random_fasterrcnn_sd(np.random.default_rng(0),
+                                       num_classes=5)
+        rng = np.random.default_rng(seed + 10)
+        for k in ("roi_heads.box_predictor.cls_score.weight",
+                  "roi_heads.box_predictor.bbox_pred.weight"):
+            sd[k] = sd[k] * (1 + 0.05 * rng.standard_normal(
+                sd[k].shape)).astype(np.float32)
+        paths.append(str(d / f"specialist_{seed}.pth"))
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, paths[-1])
+    est_sd = resnet18_sd(4, seed=3)
+    est = ResNetClassifier("resnet18", 4, "eval", precision="highest",
+                           device="cpu")
+    est.load_state_dict(classifier_from_torchvision(est_sd, num_classes=4,
+                                                    include_fc=True))
+    torch.save(est.state_dict(), d / "estimator.pt")
+    deblur = {k: torch.from_numpy(v) for k, v in
+              synthetic_deepdeblur_state_dict(3, 8, 2, seed=5).items()}
+    torch.save(deblur, d / "deepdeblur.pth")
+    return dict(paths=paths, estimator=str(d / "estimator.pt"),
+                estimator_sd=est_sd, deblur=str(d / "deepdeblur.pth"))
+
+
+@pytest.fixture(scope="module")
 def bank():
     rng = np.random.default_rng(1)
     b = np.zeros((3, 5, 2, 128, 128), np.float32)
@@ -99,13 +142,17 @@ def tiny(monkeypatch, bank):
             warp_internally=args.warp_in_model))
 
     bucket = lambda hw, **kw: (96, 96)
+    for mod in (cli_train, cli_eval, cli_est):
+        monkeypatch.setattr(mod, "generate_psf_bank", lambda *a, **k: bank)
     for mod in (cli_train, cli_eval):
         monkeypatch.setattr(mod, "build_model", port_build)
         monkeypatch.setattr(mod, "model_bucket_for_batch", bucket)
-        monkeypatch.setattr(mod, "generate_psf_bank", lambda *a, **k: bank)
     monkeypatch.setattr(jax_cli_eval, "build_model", jax_build)
     monkeypatch.setattr(jax_cli_eval, "model_bucket_for_batch", bucket)
     monkeypatch.setattr(jax_cli_eval, "generate_psf_bank", lambda *a, **k: bank)
+    monkeypatch.setattr(jax_cli_est, "generate_psf_bank", lambda *a, **k: bank)
+    for mod in (cli_est, jax_cli_est):
+        monkeypatch.setattr(mod, "model_bucket_for", lambda b: (96, 96))
     for mod in (batching, jax_batching):
         monkeypatch.setattr(mod, "DEFAULT_SOURCE_BUCKETS", ((96, 96),))
     return port_build
@@ -126,21 +173,38 @@ EVAL_CASES = {
     # BatchNorm on each image's own statistics (batch 1).
     "unfrozen-blur": ["--blur_eval", "--param_index", "2",
                       "--expand_target_boxes", "--unfrozen_batch_norm"],
+    # The LEHE ensemble of four specialists, gated by the estimator, after
+    # deblur-first (the files come from ``ensemble_files``).
+    "ensemble-lehe-deblur": ["--vanilla_eval", "--use_ensemble", "--LEHE",
+                             "--deblur_first"],
 }
 
 
 @pytest.mark.parametrize("case", sorted(EVAL_CASES))
 def test_evaluate_cli_matches_jax(coco_root, pth, tiny, case, monkeypatch,
-                                  capsys):
+                                  capsys, request):
     """The port's and JAX's ``cli.evaluate.main`` on the same synthetic
     COCO, weights and PSF bank: the same 19 stats within 1e-3 absolute,
     for the clean eval and for each of a blur sweep's 5 cells with the
-    expanded-GT rewrite, and under the deterministic remedies (warp,
-    blur-conditional norms, mode_one and train-mode BatchNorm). Random
-    weights score AP near 1e-3 (AR100 0.03-0.15), so each stat is also
-    held within 1e-3 of its own size."""
-    argv = ["--data-path", coco_root, "--start_from_weights", pth,
-            "--workers", "2", *EVAL_CASES[case]]
+    expanded-GT rewrite, under the deterministic remedies (warp,
+    blur-conditional norms, mode_one and train-mode BatchNorm), and for
+    the LEHE ensemble after deblur-first (JAX's estimator built from the
+    state dict the port's checkpoint holds). Random weights score AP near
+    1e-3 (AR100 0.03-0.15), so each stat is also held within 1e-3 of its
+    own size."""
+    argv = ["--data-path", coco_root, "--workers", "2", *EVAL_CASES[case]]
+    if "--use_ensemble" in argv:
+        files = request.getfixturevalue("ensemble_files")
+        argv += ["--ensemble_model_paths", *files["paths"],
+                 "--blur_estimator_path", files["estimator"],
+                 "--deblurer_model_location", files["deblur"]]
+        params, stats = jax_torch_convert.convert_resnet_classifier_state_dict(
+            files["estimator_sd"], include_fc=True)
+        monkeypatch.setattr(jax_cli_eval, "load_estimator", lambda path, n: (
+            JaxResNetClassifier("resnet18", n, bn_mode="eval"),
+            {"params": params, "batch_stats": stats}))
+    else:
+        argv += ["--start_from_weights", pth]
     loops = []
 
     def recorded(*args, **kwargs):
@@ -169,6 +233,8 @@ def test_evaluate_cli_matches_jax(coco_root, pth, tiny, case, monkeypatch,
     assert [s["images"] for s in loops] == [n_val] * len(ours)
     assert printed.count("model buckets met: 1 [(96, 96)]") == len(ours)
     assert all(s["step_ms_per_image"] is None for s in loops)
+    if "--use_ensemble" in argv:
+        assert printed.count("ensemble specialists chosen") == len(ours)
 
 
 def test_train_checkpoint_then_evaluate(coco_root, tiny, tmp_path):
@@ -404,7 +470,7 @@ def test_checkpoint_round_trip_and_strict_failures(tmp_path):
 
 
 # ------------------------------------------------------- flags and device
-REFUSED = [[f"--{f}"] for f in UNPORTED
+REFUSED = [[f"--{f}"] for f in UNPORTED + EVAL_ONLY
            if f not in ("deblurer_model_location", "ensemble_model_paths",
                         "blur_estimator_path", "image_output_dir",
                         "blurred_dataset")]
@@ -418,13 +484,48 @@ REFUSED += [["--deblurer_model_location", "d.pth"],
 @pytest.mark.parametrize("flag", REFUSED, ids=lambda f: f[0])
 def test_unported_flag_raises(flag, tmp_path):
     """Each flag the port does not have yet raises NotImplementedError
-    naming it, in both CLIs, before any work starts."""
+    naming it, in both CLIs, before any work starts. The flags of
+    deblur-first and of the ensemble (``EVAL_ONLY``) are ported in
+    ``cli.evaluate``; ``cli.train``, which never reads them, still
+    raises."""
     name = flag[0]
     for mod in (cli_eval, cli_train):
         if name in ("--dilate_psf", "--mode_one_norm") and mod is cli_train:
             continue    # evaluate-only flags
+        if name.lstrip("-") in EVAL_ONLY and mod is cli_eval:
+            continue    # ported in cli.evaluate
         with pytest.raises(NotImplementedError, match=name):
             mod.main(["--data-path", str(tmp_path), "--device", "cpu", *flag])
+
+
+REFERENCE_FAULTS = {
+    # JAX evaluates without deblurring and says nothing.
+    "deblur-without-model": (["--deblur_first"], "deblurer_model_location"),
+    "model-without-deblur": (["--deblurer_model_location", "d.pth"],
+                             "deblur_first"),
+    # JAX fails on an assert in predict (no bn_stats).
+    "ensemble-mode-one": (["--use_ensemble", "--mode_one_norm",
+                           "--ensemble_model_paths", "a", "b", "c", "d"],
+                          "mode_one_norm"),
+    "ensemble-unfrozen": (["--use_ensemble", "--unfrozen_batch_norm",
+                           "--ensemble_model_paths", "a", "b", "c", "d"],
+                          "unfrozen_batch_norm"),
+    # JAX asserts (dropped under python -O).
+    "ensemble-three-paths": (["--use_ensemble", "--ensemble_model_paths",
+                              "a", "b", "c"], "four"),
+    "ensemble-flags-alone": (["--LEHE", "--blur_estimator_path", "e"],
+                             "need --use_ensemble"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFERENCE_FAULTS))
+def test_evaluate_refuses_what_jax_gets_wrong(case, tmp_path):
+    """The flag combinations the JAX CLI evaluates wrongly or fails on
+    raise ValueError naming the flag, before any file is read."""
+    flags, name = REFERENCE_FAULTS[case]
+    with pytest.raises(ValueError, match=name):
+        cli_eval.main(["--data-path", str(tmp_path), "--device", "cpu",
+                       *flags])
 
 
 def test_clis_default_to_cuda(tmp_path):

@@ -331,3 +331,85 @@ def test_remedy_eval_step_on_the_card(cuda):
     assert roi_align_cuda.roi_align_fwd.launches == before + 1
     assert torch.isfinite(dets.boxes).all() and torch.isfinite(gt).all()
     assert all(torch.equal(v, stats[k]) for k, v in model.state_dict().items())
+
+
+@pytest.mark.gpu
+def test_deblur_card_vs_cpu(cuda):
+    """Deblur-first's MSResNet (3 scales, 16 features, 4 blocks) on two
+    odd-sized images, float32 with TF32 off on the card: within 1e-5 of
+    the CPU on the 0..1 scale."""
+    from synthetic_torch import synthetic_deepdeblur_state_dict
+
+    from detectinblur_tpu_torch.models.deblur import MSResNet, deblur_image
+    from detectinblur_tpu_torch.utils.convert import deepdeblur_from_torch
+
+    sd = deepdeblur_from_torch(synthetic_deepdeblur_state_dict(
+        n_scales=3, feats=16, n_blocks=4, seed=1))
+    x = torch.rand(2, 75, 101, 3, generator=torch.Generator().manual_seed(0))
+    cpu = deblur_image(MSResNet.from_state_dict(sd), x)
+    card = deblur_image(MSResNet.from_state_dict(sd).to(cuda), x.to(cuda))
+    assert card.shape == x.shape
+    assert (card.cpu() - cpu).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_estimator_train_step_card_vs_cpu(cuda):
+    """One LEHE estimator train step (label smoothing, noise and block
+    with shared draws, the min-side-800 blur, the crop) on 2 x 64x96
+    images in ``highest`` precision: the loss within 1e-4 relative of the
+    CPU's, each gradient within 5e-2 of its tensor's largest magnitude
+    (median 2e-3; BatchNorm on batch statistics), the running statistics
+    within 1e-4. JPEG and the quantization are left out: they round the
+    image values, and the float noise between cuFFT's blur and the CPU's
+    flips some of their steps (a 1e-6 nudge moves the CPU's own loss by
+    1.1e-4 and its gradients by up to 0.35 of a tensor's max with them,
+    6e-5 without)."""
+    from detectinblur_tpu_torch.models.classifier import ResNetClassifier
+    from detectinblur_tpu_torch.ops.psf import sample_psf
+    from detectinblur_tpu_torch.train.engine import BlurBatch
+    from detectinblur_tpu_torch.train.estimator_engine import (
+        draw_corruptions,
+        make_estimator_train_step,
+    )
+    from detectinblur_tpu_torch.train.state import (
+        TrainState,
+        make_lr_schedule,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    images = torch.rand(2, 64, 96, 3, generator=gen)
+    batch = BlurBatch(
+        images=images, hw=torch.tensor([[64, 96], [56, 80]]),
+        psfs=sample_psf(2, expl=0.005, fraction=0.5, generator=gen,
+                        device="cpu"),
+        blurring=torch.tensor([True, False]),
+        gt_boxes=torch.zeros(2, 1, 4),
+        gt_labels=torch.zeros(2, 1, dtype=torch.int64),
+        gt_valid=torch.zeros(2, 1, dtype=torch.bool),
+        param_index=torch.tensor([2, -1], dtype=torch.int32),
+        fraction_index=torch.tensor([4, -1], dtype=torch.int32),
+        est_label=torch.full((2,), -1, dtype=torch.int32))
+    draws = draw_corruptions(images, True, 0.001, True, False, gen)
+    got = {}
+    for dev in ("cpu", cuda):
+        model = ResNetClassifier("resnet18", 4, precision="highest",
+                                 device=dev, seed=5)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9,
+                              weight_decay=1e-4)
+        step = make_estimator_train_step(
+            model, make_lr_schedule(0.01, 1, milestones=(6, 8)), (64, 96),
+            lehe=True, label_smoothing=0.1, add_noise=True, add_block=True,
+            resize_images=True, crop_images=True)
+        _, m = step(TrainState(0, model, opt), batch, corruption_draws=draws)
+        got[str(dev)] = (m["loss"].item(),
+                         {k: p.grad.cpu() for k, p in model.named_parameters()},
+                         {k: v.cpu() for k, v in model.state_dict().items()
+                          if k.endswith(("running_mean", "running_var"))})
+    (lp, gp, sp), (lc, gc, sc) = got["cpu"], got["cuda"]
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    errs = [((gc[k] - gp[k]).abs().max() / gp[k].abs().max()).item()
+            for k in gp]
+    assert max(errs) <= 5e-2 and np.median(errs) <= 2e-3
+    for k in sp:
+        assert (sc[k] - sp[k]).abs().max() <= 1e-4 * max(
+            sp[k].abs().max().item(), 1), k

@@ -306,8 +306,6 @@ def test_eval_step_matches_jax():
         assert ok.mean() > 0.85, f"image {b}: {ok.mean():.2%} matched"
     with pytest.raises(ValueError, match="another model"):
         step(FasterRCNN(model.cfg, device="meta"), batch)
-    with pytest.raises(NotImplementedError, match="deblur_first"):
-        engine.make_eval_step(model, BUCKET, deblur_first=True)
 
 
 # ------------------------------------------------- across two processes

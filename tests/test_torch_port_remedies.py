@@ -187,11 +187,11 @@ def test_adaptive_batchnorm_matches_jax(rng, mode):
     m.load_state_dict(params_from_leaves(params, stats))
     xt = T(x).permute(0, 3, 1, 2)
     m.eval()
-    out = m(xt).permute(0, 2, 3, 1).numpy()
+    out = m(xt).permute(0, 2, 3, 1).detach().numpy()
     assert m.num_batches_tracked.item() == 7.0
     np.testing.assert_array_equal(m.running_mean.numpy(), stats["mean"])
     m.train()
-    out_train = m(xt).permute(0, 2, 3, 1).numpy()
+    out_train = m(xt).permute(0, 2, 3, 1).detach().numpy()
     np.testing.assert_array_equal(out_train, out)
     ref = np.asarray(ref)
     np.testing.assert_allclose(out, ref, atol=1e-5 * np.abs(ref).max())
@@ -428,8 +428,8 @@ def test_converters_take_the_bn_trees():
 
 def test_freeze_mask_with_batchnorm_matches_jax():
     """A bn_mode model's trainable parameters are JAX's mask on its
-    unfolded tree; the BatchNorm affines JAX keeps frozen are buffers
-    here, and so never move."""
+    unfolded tree, parameter for parameter: the BatchNorm affines are
+    parameters, and the mask keeps them frozen as JAX's does."""
     sd = weights()
     tree = convert_fasterrcnn_state_dict(sd, frozen_bn=False)
     model = FasterRCNN(FasterRCNNConfig(num_classes=5, bn_mode="train",
@@ -438,14 +438,10 @@ def test_freeze_mask_with_batchnorm_matches_jax():
     ref = params_from_jax(jax.tree.map(
         lambda m, p: np.full(np.shape(p), m, np.float32),
         jax_state._freeze_mask(tree), np_tree(tree)), 5)
-    buffers = dict(model.named_buffers())
-    assert set(ours) < set(ref)
+    assert set(ours) == set(ref)
     for name, value in ref.items():
-        trainable = bool(value.flatten()[0])
-        if name in ours:
-            assert ours[name] == trainable, name
-        else:
-            assert name in buffers and not trainable, name
+        assert ours[name] == bool(value.flatten()[0]), name
+    assert not ours["backbone.body.layer3_0.bn2.scale"]
 
 
 def test_checkpoint_round_trips_bn_buffers(tmp_path):
@@ -505,6 +501,6 @@ def test_unfrozen_pretrained_start_differs_from_jax(tmp_path):
     np.testing.assert_allclose(jscale, gamma / np.sqrt(var), rtol=1e-6)
     assert jstats == "fresh"           # the caller's fresh statistics
     bn1 = model.backbone.body.bn1
-    np.testing.assert_array_equal(bn1.scale.numpy(), gamma)
+    np.testing.assert_array_equal(bn1.scale.detach().numpy(), gamma)
     np.testing.assert_array_equal(bn1.running_var.numpy(), var)
-    assert np.abs(bn1.scale.numpy() - jscale).max() > 1e-3
+    assert np.abs(bn1.scale.detach().numpy() - jscale).max() > 1e-3

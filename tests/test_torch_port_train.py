@@ -381,8 +381,11 @@ def test_make_optimizer_freezes_and_trains():
 
 
 def test_train_step_refuses_unported_options():
-    """The remedies are ported: every option of the train and eval steps
-    builds a step. Deblur-first, the one option still to port, raises."""
+    """Every option of the train and eval steps is ported and builds a
+    step, deblur-first (an eval step's ``deblurrer``) included; nothing is
+    refused any more."""
+    from detectinblur_tpu_torch.models.deblur import MSResNet
+
     model = FasterRCNN(FasterRCNNConfig(precision="highest"), device="meta")
     for kw in ("use_warp", "use_custom_norm", "add_noise", "add_block",
                "add_jpeg"):
@@ -390,8 +393,9 @@ def test_train_step_refuses_unported_options():
                                                **{kw: True}))
         assert callable(engine.make_eval_step(model, (64, 64), **{kw: True}))
     assert callable(engine.make_eval_step(model, (64, 64), dilate_psf=True))
-    with pytest.raises(NotImplementedError, match="deblur_first"):
-        engine.make_eval_step(model, (64, 64), deblur_first=True)
+    with torch.device("meta"):
+        net = MSResNet(n_scales=2, feats=4, n_blocks=1)
+    assert callable(engine.make_eval_step(model, (64, 64), deblurrer=net))
 
 
 def test_images01_matches_jax():
