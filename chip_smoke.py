@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving, training, entry-point, remedy,
-deblur-first, blur-estimator and ensemble paths on one CUDA card.
+deblur-first, blur-estimator, ensemble, single-map detector and
+natural-blur paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -95,10 +96,33 @@ Phases (any failure exits non-zero and prints no result):
      eval's inputs, the chosen specialists printed, and the clean ensemble
      eval again on the CPU with the card's stats. Cut to 4 clean and 8
      sweep images an eval.
+ 11. The single-map detectors (``--model mobile_net|resnet_50``, full
+     width: MobileNetV2's 1280 channels, the ResNet-50 C5's 2048) and the
+     natural-blur data. (a) For each: blur + predict of phase 4's batch in
+     the CLIs' bucket (832x1088, the model resizing to 300x400 inside it),
+     ``default`` precision, random weights from seed 0: the forward kernel
+     must launch, and is held against its plain version on the run's own
+     rois and map (bfloat16 and float32) and timed against its bytes
+     bound; img/s. (b) Phase 5's train step: both kernels launched, every
+     parameter and (MobileNetV2) every running statistic moved, the
+     backward held on the step's cotangent and timed against its bound;
+     img/s and peak memory. (c) ``highest``, the card against the CPU:
+     mobile_net's loss and gradients (within 3x the card's own spread
+     under a 1e-6 nudge), resnet_50's predict. (d) ``cli.train --model
+     mobile_net`` (3 steps; its checkpoint back bit for bit, running
+     statistics included), ``cli.evaluate --model mobile_net`` on it
+     (the CPU's 19 stats), ``--model resnet_50`` from a torso ``.pth``,
+     then on a synthetic GOPRO sequence at 720x1280: ``dataset_tools
+     render-gopro-synth`` and ``segment-gopro``, ``cli.evaluate
+     --blurred_dataset GOPROSynth --expand_synth_boxes`` and
+     ``GOPROSynthLoad``, and ``cli.train_blur_estimator --dataset
+     GOPROBlurEst --LEHE_blur_seg`` (3 steps); each eval one forward
+     launch per image, each kernel held on its inputs.
 
 The last two lines are a JSON object describing each kernel (its
 ``launches`` summed over the counted runs of every path, one count per
-path in ``launches_by_path``) and ``{"ok": true, "device": {...}}``.
+path in ``launches_by_path``, and its phase 11 readings per single-map
+detector in ``single_map``) and ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -216,7 +240,7 @@ def roi_align_bound(feats, g, R):
     each output element written once, each feature cell that some sample's
     corner needs (nonzero weight) read once, the geometry table read once;
     16 multiply-adds per output element."""
-    N = g.level.shape[0]
+    N, C = g.level.shape[0], feats[0].shape[-1]
     cells, _ = _touched(g, R, [f.shape[1:3] for f in feats])
     elem = feats[0].element_size()
     out_bytes = N * 49 * C * elem
@@ -324,7 +348,7 @@ def roi_align_bwd_bound(dout, g, R, shapes, out_dtype):
     cell a nonzero-weight corner of a roi with a nonzero cotangent
     touches, and the cast pass to ``out_dtype`` where there is one; one
     multiply-add (2 operations) per channel of each such corner update."""
-    N = dout.shape[0]
+    N, C = dout.shape[0], dout.shape[-1]
     active = dout.reshape(N, -1).ne(0).any(dim=1)
     cells, pairs = _touched(g, R, shapes, active)
     acc = (N // R) * sum(h * w for h, w in shapes) * C * 4
@@ -366,22 +390,23 @@ def _train_batch(gen):
 def _capture_roi_align(fwd, bwd):
     """While open, record what the RoIAlign Function hands its kernels,
     the first call of each shape and dtype: ``fwd`` gets (boxes, levels)
-    keyed by (boxes' shape, level shapes, dtype), ``bwd`` gets (cotangent,
+    keyed by (boxes' shape, level shapes, dtype, the one level's scale or
+    None for P2..P5), ``bwd`` gets (cotangent,
     geometry saved by the forward, rois per image, level shapes, feature
     dtype) keyed by (cotangent's shape, level shapes, dtype). Nothing is
     launched for it, so the launch counts stay the path's own."""
     from detectinblur_tpu_torch.ops import roi_align_cuda
     from detectinblur_tpu_torch.ops.roi_align import RoIGeometry
 
-    fn = roi_align_cuda._MultiscaleRoIAlign
+    fn = roi_align_cuda._RoIAlign
     forward, backward = fn.forward, fn.backward
 
-    def capture_fwd(ctx, boxes, *features):
+    def capture_fwd(ctx, boxes, spatial_scale, *features):
         key = (tuple(boxes.shape), tuple(tuple(f.shape[1:3]) for f in features),
-               features[0].dtype)
+               features[0].dtype, spatial_scale)
         if key not in fwd:
             fwd[key] = (boxes.detach().clone(), [f.detach() for f in features])
-        return forward(ctx, boxes, *features)
+        return forward(ctx, boxes, spatial_scale, *features)
 
     def capture_bwd(ctx, dout):
         Bn, R = dout.shape[:2]
@@ -873,25 +898,37 @@ def check_captured(path, fwd, bwd):
         multiscale_roi_align,
         roi_align_backward_from_geometry,
     )
+    from detectinblur_tpu_torch.ops.roi_align import roi_align_single_level
     from detectinblur_tpu_torch.ops.roi_align_cuda import (
         multiscale_roi_align_cuda,
         roi_align_bwd,
+        roi_align_single_level_cuda,
     )
 
-    bucket = lambda shapes: f"{4 * shapes[0][0]}x{4 * shapes[0][1]}"
-    for (bshape, shapes, dt), (boxes, feats) in fwd.items():
+    def hw(shapes):
+        stride = 4 if len(shapes) == 4 else 32
+        return stride * shapes[0][0], stride * shapes[0][1]
+
+    bucket = lambda shapes: "x".join(map(str, hw(shapes)))
+    for (bshape, shapes, dt, scale), (boxes, feats) in fwd.items():
+        if scale is None:
+            got = lambda: multiscale_roi_align_cuda(feats, boxes)
+            ref = lambda: multiscale_roi_align(feats, boxes)
+        else:
+            got = lambda: roi_align_single_level_cuda(feats[0], boxes, scale)
+            ref = lambda: torch.stack([roi_align_single_level(
+                feats[0][b], boxes[b], scale) for b in range(bshape[0])])
         with torch.no_grad():
             _hold(f"{path}: roi_align_fwd {_name(dt)} at B={bshape[0]} x "
-                  f"{bshape[1]} rois on bucket {bucket(shapes)}",
-                  multiscale_roi_align_cuda(feats, boxes),
-                  multiscale_roi_align(feats, boxes),
+                  f"{bshape[1]} rois on bucket {bucket(shapes)}"
+                  + ("" if scale is None else " (one level)"), got(), ref(),
                   bf16_rounded=dt == torch.bfloat16)
     for (_, shapes, dt), (dout, geom, R, level_shapes, _) in bwd.items():
         _hold(f"{path}: roi_align_bwd {_name(dt)} cotangent at "
               f"{dout.shape[0] // R} x {R} rois on bucket {bucket(shapes)}",
               roi_align_bwd(dout, geom, R, level_shapes),
               roi_align_backward_from_geometry(dout, geom, R, level_shapes))
-    return {(4 * shapes[0][0], 4 * shapes[0][1]) for _, shapes, _ in fwd}
+    return {hw(shapes) for _, shapes, _, _ in fwd}
 
 
 STAGES = ("eval.to_device", "eval.blur_expand", "predict.preprocess",
@@ -1984,6 +2021,499 @@ def run_ensemble_entry_points(keep):
                       for s in loops[:-1]]
 
 
+# ------------------------------------------------ single-map detectors
+SINGLE_MAP = (("mobile_net", "mobile_net"), ("resnet_50", "resnet50"))
+
+
+def _single_map(torso, precision="default", device="cuda", zero_deltas=True,
+                imagenet=False, **kw):
+    """A single-map detector at full width, random weights from seed 0;
+    with ``imagenet`` its torso from ``tests/torso_weights.py``'s random
+    He-scaled torchvision classifier (seed 0 for mobilenet_v2, 1 for
+    resnet50; a fresh MobileNetV2 on running statistics passes almost no
+    signal through its 17 linear bottlenecks), as ``--pretrained`` loads
+    an ImageNet one; with ``zero_deltas`` the RPN delta head is zero, so
+    that proposals sit at the anchors (bench.py:90-103, as phase 4)."""
+    from detectinblur_tpu_torch.models.backbones import (
+        SingleMapConfig,
+        SingleMapFasterRCNN,
+    )
+    from detectinblur_tpu_torch.utils.convert import torso_from_torchvision
+    from torso_weights import mobilenet_sd, resnet_sd
+
+    model = SingleMapFasterRCNN(SingleMapConfig(torso, precision=precision,
+                                                **kw), device=device)
+    if imagenet:
+        sd = mobilenet_sd() if torso == "mobile_net" else resnet_sd(torso)
+        model.load_state_dict({**model.state_dict(),
+                               **torso_from_torchvision(sd, torso)})
+    if zero_deltas:
+        with torch.no_grad():
+            model.rpn_head.bbox_pred.weight.zero_()
+            model.rpn_head.bbox_pred.bias.zero_()
+    return model
+
+
+def _single_geom(boxes, feats):
+    from detectinblur_tpu_torch.ops.roi_align import roi_geometry
+
+    return roi_geometry(boxes.reshape(-1, 4), [feats[0].shape[1:3]],
+                        spatial_scale=1 / 32)
+
+
+def run_single_map_serving(torso, gen):
+    """Phase 11a: blur + ``predict`` of B=8 480x640 images in the CLIs'
+    bucket (832x1088; the model resizes to 300x400 inside it) at full
+    width, ``default`` precision, the torso from a random torchvision
+    classifier (``_single_map``), the class scores x4 so that random
+    heads score boxes. The counted run must launch the forward
+    kernel; the kernel is held against its plain version on the rois and
+    the map the run handed it, in bfloat16 and float32, and timed there
+    against its bytes bound. Returns (launches, timing, summary)."""
+    from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
+    from detectinblur_tpu_torch.ops.blur import batched_blur
+    from detectinblur_tpu_torch.ops.psf import sample_psf
+    from detectinblur_tpu_torch.ops.roi_align_cuda import (
+        roi_align_single_level_cuda,
+    )
+
+    hw = np.tile(np.asarray([SRC_HW]), (B, 1))
+    bucket = model_bucket_for_batch(hw)
+    model = _single_map(torso, imagenet=True)
+    with torch.no_grad():   # random heads then score boxes above 0.05
+        model.box_predictor.cls_score.weight.mul_(4)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.random((B, *SRC_HW, 3), np.float32)).cuda()
+    psfs = sample_psf(B, expl=0.005, fraction=0.5, generator=gen,
+                      device="cuda")
+    blurring = torch.ones(B, dtype=torch.bool, device="cuda")
+
+    def blur_detect():
+        blurred = batched_blur(images.permute(0, 3, 1, 2), psfs, blurring)
+        return model.predict(blurred.permute(0, 2, 3, 1), hw, bucket)
+
+    blur_detect()
+    fwd = {}
+    with _capture_roi_align(fwd, {}):
+        blur_detect()
+    det, launches = _counted(blur_detect)
+    launches = launches["roi_align_fwd"]
+    print(f"single-map {torso} serving: bucket {bucket}, roi_align_fwd "
+          f"launches {launches}")
+    if launches == 0:
+        sys.exit(f"single-map {torso} serving never launched roi_align_fwd")
+    if det.boxes.shape != (B, 100, 4) or not (
+            torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()):
+        sys.exit(f"single-map {torso}: bad detections {det.boxes.shape}")
+
+    torch.cuda.reset_peak_memory_stats()
+    windows, iters = 5, 3
+    rates = [B * iters / (_cuda_ms(blur_detect, iters) * iters / 1e3)
+             for _ in range(windows)]
+    img_s = sorted(rates)[(windows - 1) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    (boxes, feats), = fwd.values()
+    for dt in (torch.bfloat16, torch.float32):
+        f = feats[0].to(dt)
+        with torch.no_grad():
+            _hold(f"single-map {torso} serving: roi_align_fwd {_name(dt)} at "
+                  f"{tuple(boxes.shape)} rois on the {tuple(f.shape)} map",
+                  roi_align_single_level_cuda(f, boxes, 1 / 32),
+                  roi_align_from_geometry_single(f, boxes),
+                  bf16_rounded=dt == torch.bfloat16)
+    timing = time_fwd_kernel(feats, _single_geom(boxes, feats),
+                             boxes.shape[1],
+                             f"single-map {torso} serving rois")
+    summary = {"img_s": img_s, "window_img_s": rates, "peak_mem_gib": peak,
+               "map": list(feats[0].shape), "valid_detections":
+               det.valid.sum(1).tolist()}
+    print(f"single-map {torso} serving " + json.dumps(summary))
+    return launches, timing, summary
+
+
+def roi_align_from_geometry_single(feat, boxes):
+    """The plain single-level RoIAlign of [B, R, 4] ``boxes`` on ``feat``
+    [B, H, W, C] at 1/32 -> [B, R, 7, 7, C]."""
+    from detectinblur_tpu_torch.ops.roi_align import roi_align_from_geometry
+
+    out = roi_align_from_geometry([feat], _single_geom(boxes, [feat]),
+                                  boxes.shape[1])
+    return out.reshape(*boxes.shape[:2], *out.shape[1:])
+
+
+def run_single_map_train(torso, gen):
+    """Phase 11b: the train step (bench_train.py's protocol: B=8, 16 GT
+    boxes, blur and GT expansion, lr 0.04 from scratch, ``default``) of a
+    single-map detector. The counted step must launch both kernels, keep
+    its losses finite and move every parameter (nothing is frozen outside
+    ``backbone.body``: the FrozenBatchNorm affines of resnet50 train) and,
+    for MobileNetV2, every running statistic. The backward kernel is held
+    against its plain version on the step's cotangent (bfloat16, and the
+    same in float32) and timed against its bound. Returns (launches,
+    the backward's timing entry, summary)."""
+    from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
+    from detectinblur_tpu_torch.ops.roi_align import (
+        roi_align_backward_from_geometry,
+    )
+    from detectinblur_tpu_torch.ops.roi_align_cuda import roi_align_bwd
+    from detectinblur_tpu_torch.train.engine import make_train_step
+    from detectinblur_tpu_torch.train.state import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    bucket = model_bucket_for_batch([SRC_HW] * B)
+    model = _single_map(torso, zero_deltas=False)
+    opt, schedule = make_optimizer(model, base_lr=0.04, steps_per_epoch=1000)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, schedule, bucket, blur_train=True,
+                           expand_target_boxes=True)
+    batch = _train_batch(gen)
+    state, _ = step(state, batch, generator=gen)
+    fwd, bwd = {}, {}
+    with _capture_roi_align(fwd, bwd):
+        state, _ = step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    (state, metrics), launches = _counted(
+        lambda: step(state, batch, generator=gen))
+    print(f"single-map {torso} train step: launches {launches}, losses "
+          + json.dumps({k: v.item() for k, v in metrics.items()}))
+    if min(launches.values()) == 0:
+        sys.exit(f"the single-map {torso} train step did not launch every "
+                 "kernel")
+    if not all(torch.isfinite(v) for v in metrics.values()):
+        sys.exit(f"non-finite single-map {torso} training loss")
+    params = {n for n, _ in model.named_parameters()}
+    trainable = {n for g in opt.param_groups for p in g["params"]
+                 for n, q in model.named_parameters() if q is p}
+    moved = {k for k, v in model.state_dict().items()
+             if not torch.equal(v, before[k])}
+    stats = {k for k in before if k.rpartition(".")[2] in BN_STATS}
+    print(f"single-map {torso} train step: {len(moved & params)} of "
+          f"{len(params)} parameters moved ({len(trainable)} trainable), "
+          f"{len(moved & stats)} of {len(stats)} BatchNorm buffers")
+    if trainable != params or moved != params | stats:
+        sys.exit(f"the single-map {torso} train step moved the wrong "
+                 f"tensors: {sorted((params | stats) ^ moved)[:5]}")
+    del before
+
+    torch.cuda.reset_peak_memory_stats()
+    windows, iters = 3, 3
+    rates = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            state, _ = step(state, batch, generator=gen)
+        end.record()
+        torch.cuda.synchronize()
+        rates.append(B * iters / (start.elapsed_time(end) / 1e3))
+    img_s = sorted(rates)[(windows - 1) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    (boxes, feats), = fwd.values()
+    time_fwd_kernel(feats, _single_geom(boxes, feats), boxes.shape[1],
+                    f"single-map {torso} train rois")
+    captured, = bwd.values()
+    dout, geom, R, shapes, out_dtype = captured
+    errs = {}
+    for dt in (dout.dtype, torch.float32):
+        d = dout.to(dt)
+        errs[dt] = _hold(
+            f"single-map {torso} train step: roi_align_bwd {_name(dt)} "
+            f"cotangent at {d.shape[0] // R} x {R} rois on the "
+            f"{tuple(shapes[0])} map of {d.shape[-1]} channels",
+            roi_align_bwd(d, geom, R, shapes),
+            roi_align_backward_from_geometry(d, geom, R, shapes))
+    entry = time_bwd_kernel(captured, launches["roi_align_bwd"], errs,
+                            f"the single-map {torso} train step's")
+    summary = {"img_s": img_s, "window_img_s": rates, "peak_mem_gib": peak}
+    print(f"single-map {torso} train " + json.dumps(summary))
+    return launches, entry, summary
+
+
+def check_single_map_against_cpu():
+    """Phase 11c, ``highest`` precision, the card (kernels) against the
+    port's CPU (plain versions): mobile_net's loss and gradients on 2
+    images of 256x320 with the sampler draws injected and the RPN's
+    prediction layers fixed (proposals at the anchors on both devices):
+    losses within 1e-4 relative; each gradient within 3x the card's own
+    spread under a 1e-6 nudge of the images (BatchNorm on batch
+    statistics is ill-conditioned at this size) or within 1e-3 of its
+    max, their median no larger than the nudge's (at least 2e-3). Then
+    resnet_50's predict on 2 small
+    images (5 classes, predictor x4 so that random weights score): C5
+    within 2e-3 of its max, 85% of the CPU's detections matched by label,
+    IoU > 0.95 and score within 2e-3."""
+    from detectinblur_tpu_torch.models.faster_rcnn import LossDraws
+
+    bucket, G = (256, 320), 5
+    kw = dict(min_size=256, max_size=320, num_classes=5)
+    hw = np.array([[240, 320], [256, 200]])
+    rng = np.random.default_rng(6)
+    imgs = rng.random((2, *bucket, 3), np.float32)
+    gt = np.zeros((2, G, 4), np.float32)
+    gt[..., :2] = rng.uniform(0, 150, (2, G, 2))
+    gt[..., 2:] = gt[..., :2] + rng.uniform(40, 120, (2, G, 2))
+    labels = torch.from_numpy(rng.integers(1, 5, (2, G)))
+    valid = torch.ones(2, G, dtype=torch.bool)
+    A = 15 * (bucket[0] // 32) * (bucket[1] // 32)
+    PG = 2000 + G
+    g = torch.Generator().manual_seed(5)
+    draws = LossDraws(rpn=(torch.rand(2, A, generator=g),
+                           torch.rand(2, A, generator=g)),
+                      roi=(torch.rand(2, PG, generator=g),
+                           torch.rand(2, PG, generator=g)))
+    nudge = np.float32(1e-6) * rng.standard_normal(imgs.shape).astype(
+        np.float32)
+
+    def grads(dev, images):
+        model = _single_map("mobile_net", "highest", dev, **kw)
+        with torch.no_grad():
+            model.rpn_head.cls_logits.weight.zero_()
+            model.rpn_head.cls_logits.bias.copy_(
+                torch.linspace(-0.3, 0.3, 15) + 0.01)
+        losses = model.loss(torch.from_numpy(images), hw,
+                            torch.from_numpy(gt), labels, valid, bucket,
+                            draws=LossDraws(*(tuple(t.to(dev) for t in d)
+                                              for d in draws)))
+        sum(losses.values()).backward()
+        return ({k: v.item() for k, v in losses.items()},
+                {n: p.grad.cpu() for n, p in model.named_parameters()})
+
+    (card_l, card_g), n = _counted(lambda: grads("cuda", imgs))
+    if min(n.values()) == 0:
+        sys.exit("the card's single-map loss did not launch both kernels")
+    _, nudged_g = grads("cuda", imgs + nudge)
+    cpu_l, cpu_g = grads("cpu", imgs)
+    top = max(v.abs().max().item() for v in cpu_g.values())
+    rel = lambda a, b, k: ((a - b).abs().max().item()
+                           / max(cpu_g[k].abs().max().item(), 1e-5 * top))
+    err = {k: rel(card_g[k], cpu_g[k], k) for k in cpu_g}
+    spread = {k: rel(nudged_g[k], card_g[k], k) for k in cpu_g}
+    loss_err = max(abs(card_l[k] - v) / abs(v) for k, v in cpu_l.items())
+    bad = {k: (e, spread[k]) for k, e in err.items()
+           if not e <= max(3 * spread[k], 1e-3)}
+    print(f"card vs CPU single-map mobile_net loss (2 x 256x320): losses "
+          f"{cpu_l}, max relative loss error {loss_err:.3g}; gradient error "
+          f"/ max |grad|: median {np.median(list(err.values())):.3g}, max "
+          f"{max(err.values()):.3g}; the card's own under a 1e-6 nudge: "
+          f"median {np.median(list(spread.values())):.3g}, max "
+          f"{max(spread.values()):.3g}; outside 3x the nudge and 1e-3: "
+          f"{len(bad)}")
+    if loss_err > 1e-4 or bad or np.median(list(err.values())) > max(
+            np.median(list(spread.values())), 2e-3):
+        sys.exit(f"the card's single-map loss or gradients disagree with "
+                 f"the CPU's: {sorted(bad.items())[:3]}")
+
+    hw = np.array([[110, 150], [128, 100]])
+    imgs = torch.from_numpy(rng.random((2, 128, 160, 3), np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = _single_map("resnet50", "highest", dev, min_size=128,
+                            max_size=160, num_classes=5)
+        with torch.no_grad():
+            model.box_predictor.cls_score.weight.mul_(4)
+            batched, _ = model.preprocess(imgs.to(dev), hw, (128, 160))
+            c5, = model.features(batched)
+            out[dev] = c5.float().cpu(), model.predict(imgs, hw, (128, 160))
+    c5_err = ((out["cuda"][0] - out["cpu"][0]).abs().max()
+              / out["cpu"][0].abs().max()).item()
+    got = type(out["cpu"][1])(*(t.cpu() for t in out["cuda"][1]))
+    shares = _match_share(got, out["cpu"][1])
+    n_det = out["cpu"][1].valid.sum(1).tolist()
+    print(f"card vs CPU single-map resnet_50 predict: C5 max err / max "
+          f"{c5_err:.3g}, detections {n_det}, matched {shares}")
+    if c5_err > 2e-3 or min(shares) <= 0.85 or min(n_det) < 1:
+        sys.exit("the card's single-map predict disagrees with the CPU's")
+
+
+def run_single_map_entry_points():
+    """Phase 11d, the entry points with the single-map detectors and the
+    natural-blur data. On phase 8's synthetic COCO: ``cli.train --model
+    mobile_net`` (batch 2, 3 steps, lr 1e-5, from a start checkpoint: the
+    He-scaled MobileNetV2 torso of ``tests/torso_weights.py`` and the
+    port's random heads, the predictor x4 so that they score) must launch
+    both kernels and write a ``model_0.pt`` that gives back weights,
+    momentum, step and running statistics bit for bit; ``cli.evaluate
+    --model mobile_net`` on it (8 images) must give the CPU's 19 stats;
+    ``cli.evaluate --model resnet_50`` from a He-scaled resnet50 ``.pth``
+    (its torso, random heads, which may score no box; 4 images), and from
+    a start checkpoint made as mobile_net's. On a synthetic GOPRO sequence at
+    GOPRO's 720x1280 (13 frames with DORS dumps and flows,
+    ``tests/synthetic_gopro.py``): ``dataset_tools render-gopro-synth
+    --window 2 --expand_boxes``, ``segment-gopro``, then ``cli.evaluate
+    --blurred_dataset GOPROSynth --expand_synth_boxes`` (3 images) and
+    ``--blurred_dataset GOPROSynthLoad`` on the rendered set (9), and
+    ``cli.train_blur_estimator --dataset GOPROBlurEst --LEHE_blur_seg``
+    (3 steps). Each eval launches ``roi_align_fwd`` once per image, gives
+    19 finite stats, and each kernel is held against its plain version on
+    the inputs it was handed. Returns the launches per CLI."""
+    import shutil
+
+    import detectinblur_tpu_torch.cli.dataset_tools as tools
+    import detectinblur_tpu_torch.cli.evaluate as cli_eval
+    import detectinblur_tpu_torch.cli.train as cli_train
+    import detectinblur_tpu_torch.cli.train_blur_estimator as cli_est
+    from detectinblur_tpu_torch.train import eval_loop
+    from detectinblur_tpu_torch.train.checkpoint import restore_checkpoint
+    from detectinblur_tpu_torch.train.state import (
+        create_train_state,
+        make_optimizer,
+    )
+    from synthetic_gopro import write_gopro
+    from torso_weights import mobilenet_sd, resnet_sd
+
+    loops = []
+
+    def recorded_eval(*args, **kwargs):
+        stats, loop = eval_loop.evaluate_coco(*args, **kwargs)
+        loops.append(loop)
+        return stats, loop
+
+    cli_train.evaluate_coco = cli_eval.evaluate_coco = recorded_eval
+    launches = {}
+    save = lambda sd, path: torch.save(
+        {k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        root = _write_coco(str(tmp / "coco"))
+        save(mobilenet_sd(), tmp / "mobilenet_v2.pth")
+        save(resnet_sd("resnet50"), tmp / "resnet50.pth")
+        parse = cli_train.train_parser().parse_args
+        for flag, pth in (("mobile_net", "mobilenet_v2.pth"),
+                          ("resnet_50", "resnet50.pth")):
+            start = cli_train.load_initial_params(
+                parse(["--model", flag, "--start_from_weights",
+                       str(tmp / pth)]),
+                cli_train.build_model(parse(["--model", flag]), "cuda"))
+            with torch.no_grad():
+                start.box_predictor.cls_score.weight.mul_(4)
+            torch.save(start.state_dict(), tmp / f"{flag}_start.pt")
+        del start
+        gopro = write_gopro(str(tmp / "gopro"), [("train", 13)],
+                            hw=(720, 1280), seed=0, box_frac=(0.2, 0.6))
+        rendered = str(tmp / "rendered")
+        tools.main(["render-gopro-synth", "--root_dir", gopro,
+                    "--output_dir", rendered, "--window", "2",
+                    "--expand_boxes"])
+        tools.main(["segment-gopro", "--root_dir", rendered])
+        print(f"phase 11d data (COCO, weights, GOPRO 720x1280 x 13 frames, "
+              f"rendered and split): {time.perf_counter() - t0:.2f} s")
+
+        out = tmp / "out"
+        fwd, bwd = {}, {}
+        t0 = time.perf_counter()
+        with _capture_roi_align(fwd, bwd):
+            run, n = _counted(lambda: cli_train.main([
+                "--data-path", root, "--model", "mobile_net", "--blur_train",
+                "--expand_target_boxes", "-b", "2", "--epochs", "1",
+                "--early_stop", "3", "--output_dir", str(out),
+                "--print-freq", "1", "--lr", "1e-5", "--start_from_weights",
+                str(tmp / "mobile_net_start.pt")]))
+        print(f"cli.train --model mobile_net: {time.perf_counter() - t0:.2f} "
+              f"s, launches {n}, losses " + json.dumps(run.losses))
+        if min(n.values()) == 0 or len(run.losses) != 3 or not all(
+                np.isfinite(v) for m in run.losses for v in m.values()):
+            sys.exit("cli.train --model mobile_net: no launch, or missing or "
+                     "non-finite losses")
+        check_captured("cli.train --model mobile_net", fwd, bwd)
+        launches["cli_train_mobile_net"] = n
+        ckpt = str(out / "model_0.pt")
+        model = cli_train.build_model(parse(["--model", "mobile_net"]),
+                                      "cuda")
+        opt, _ = make_optimizer(model)
+        state = restore_checkpoint(ckpt, create_train_state(model, opt))
+        same = all(torch.equal(v, model.state_dict()[k]) for k, v in
+                   run.state.model.state_dict().items())
+        bufs = lambda o: [o.state[p]["momentum_buffer"]
+                          for g in o.param_groups for p in g["params"]]
+        same_m = len(bufs(opt)) == len(bufs(run.state.optimizer)) > 0 and all(
+            torch.equal(a, b) for a, b in zip(bufs(opt),
+                                              bufs(run.state.optimizer)))
+        count = model.backbone.stem_bn.num_batches_tracked.item()
+        print(f"{Path(ckpt).name}: weights and running statistics {same}, "
+              f"momentum {same_m}, step {state.step}, count {count}")
+        if not (same and same_m and state.step == run.state.step == 3
+                and count == 3.0):
+            sys.exit("the mobile_net checkpoint did not come back bit for bit")
+        del model, opt, state, run
+
+        r50 = ["--data-path", root, "--model", "resnet_50", "--vanilla_eval",
+               "--early_stop", "4", "--start_from_weights"]
+        evals = (
+            ("mobile_net clean", ["--data-path", root, "--model", "mobile_net",
+                                  "--resume", ckpt, "--vanilla_eval",
+                                  "--early_stop", "4"], 4),
+            ("resnet_50 clean, torso .pth", r50 + [str(tmp / "resnet50.pth")],
+             4),
+            ("resnet_50 clean", r50 + [str(tmp / "resnet_50_start.pt")], 4),
+            ("mobile_net GOPROSynth expanded", [
+                "--data-path", gopro, "--model", "mobile_net", "--resume",
+                ckpt, "--blurred_dataset", "GOPROSynth",
+                "--expand_synth_boxes"], 3),
+            ("mobile_net GOPROSynthLoad", [
+                "--data-path", rendered, "--model", "mobile_net", "--resume",
+                ckpt, "--blurred_dataset", "GOPROSynthLoad"], 9))
+        for name, argv, images in evals:
+            path = f"cli.evaluate {name}"
+            fwd, n_loops = {}, len(loops)
+            t0 = time.perf_counter()
+            with _capture_roi_align(fwd, {}):
+                stats, n = _counted(lambda: cli_eval.main(argv))
+            print(f"{path}: {time.perf_counter() - t0:.2f} s, launches {n}, "
+                  f"images {loops[-1]['images']}, detections "
+                  f"{loops[-1]['detections']}")
+            if name.endswith(".pth"):   # random heads: no box may score
+                print(f"{path}: 19 stats {np.round(stats, 4).tolist()}")
+                if stats.shape != (19,) or not np.isfinite(stats).all():
+                    sys.exit(f"{path}: stats are not 19 finite numbers")
+            else:
+                _check_stats(path, stats)
+            if n["roi_align_fwd"] != images or loops[-1]["images"] != images:
+                sys.exit(f"{path}: roi_align_fwd launched "
+                         f"{n['roi_align_fwd']} times for {images} images")
+            check_captured(path, fwd, {})
+            launches[path.replace(" ", "_").replace(".", "_")] = n
+            if name == "mobile_net clean":
+                card, card_dets = stats, loops[n_loops]["detections"]
+        t0 = time.perf_counter()
+        cpu = cli_eval.main(evals[0][1] + ["--device", "cpu"])
+        err = np.abs(np.asarray(card) - cpu)
+        cpu_dets = loops[-1]["detections"]
+        ok = bool(((err <= 1e-3) & (err <= 1e-3 * np.abs(cpu) + 1e-7)).all()
+                  ) and abs(card_dets - cpu_dets) <= 0.02 * max(cpu_dets, 1)
+        print(f"card vs CPU cli.evaluate --model mobile_net "
+              f"({time.perf_counter() - t0:.2f} s on the CPU): max |stat "
+              f"difference| {err.max():.3g}, tolerance 1e-3 and 1e-3 of each "
+              f"stat; detections {card_dets} vs {cpu_dets}, tolerance 2%: "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok or cpu_dets == 0:
+            sys.exit("the card's mobile_net eval disagrees with the CPU's")
+
+        t0 = time.perf_counter()
+        est_out = str(tmp / "estimator")
+        run, n = _counted(lambda: cli_est.main([
+            "--data-path", rendered, "--dataset", "GOPROBlurEst",
+            "--LEHE_blur_seg", "-b", "2", "--epochs", "1", "--early_stop",
+            "2", "--print-freq", "1", "--output_dir", est_out]))
+        print(f"cli.train_blur_estimator --dataset GOPROBlurEst: "
+              f"{time.perf_counter() - t0:.2f} s, steps {run.state.step}, "
+              f"losses " + json.dumps(run.losses) + f", top-1 {run.top1}, "
+              f"confusion {run.confusion.tolist()}")
+        if run.state.step != 3 or not all(
+                np.isfinite(v) for m in run.losses for v in m.values()):
+            sys.exit("cli.train_blur_estimator --dataset GOPROBlurEst: not 3 "
+                     "finite steps")
+    for s in loops:
+        print("eval loop " + json.dumps(s))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -2052,6 +2582,23 @@ def main():
         "ensemble_eval_loops": ensemble_loops,
         "seconds": time.perf_counter() - t0}))
 
+    t0 = time.perf_counter()
+    single = {}
+    for flag, torso in SINGLE_MAP:
+        serve_n, fwd_t, serve = run_single_map_serving(torso, cuda_gen)
+        train_n, bwd_t, train = run_single_map_train(torso, cuda_gen)
+        single[flag] = (serve_n, train_n, fwd_t, bwd_t, serve, train)
+        torch.cuda.empty_cache()
+    check_single_map_against_cpu()
+    entry.update(run_single_map_entry_points())
+    print("phase 11 " + json.dumps({
+        flag: {"serving_img_s": v[4]["img_s"], "train_img_s": v[5]["img_s"],
+               "train_peak_mem_gib": v[5]["peak_mem_gib"],
+               "fwd_ms": v[2][0], "fwd_bound_ms": v[2][2],
+               "bwd_ms": v[3]["ms"], "bwd_bound_ms": v[3]["bound_ms"]}
+        for flag, v in single.items()} | {
+            "seconds": time.perf_counter() - t0}))
+
     by_path = {
         "roi_align_fwd": {"serving": launches,
                           "train_step": train_launches["roi_align_fwd"],
@@ -2060,10 +2607,22 @@ def main():
         "roi_align_bwd": {"train_step": train_launches["roi_align_bwd"],
                           "remedy_train_step": remedy_train["roi_align_bwd"]},
     }
+    for flag, (serve_n, train_n, _, _, _, _) in single.items():
+        by_path["roi_align_fwd"][f"single_map_{flag}_serving"] = serve_n
+        for name, n in train_n.items():
+            by_path[name][f"single_map_{flag}_train_step"] = n
     for path, counts in entry.items():
         for name, n in counts.items():
             if n:
                 by_path[name][path] = n
+    # The single-map paths' own readings of each kernel (phase 11).
+    kernels[0]["single_map"] = {
+        flag: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), v[2]))
+        for flag, v in single.items()}
+    kernels[1]["single_map"] = {
+        flag: {k: v[3][k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "max_abs_err")}
+        for flag, v in single.items()}
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         k["launches"] = sum(by_path[k["name"]].values())

@@ -4,10 +4,10 @@ and evaluate.py:378-468), except ``--device``, which defaults to ``cuda``.
 
 Flags whose feature the port does not have yet are parsed as there, and
 ``refuse_unported`` raises ``NotImplementedError`` naming each one that
-was set; so do the evaluation-only flags (``EVAL_ONLY``: deblur-first and
-the ensemble) given to ``cli.train``, which never reads them: no flag is
-silently ignored. ``estimator_parser`` is the blur estimator trainer's
-(JAX ``cli/train_blur_estimator.py:35-51``).
+was set; so do the evaluation-only flags (``EVAL_ONLY``: deblur-first,
+the ensemble and the natural-blur datasets) given to ``cli.train``, which
+never reads them: no flag is silently ignored. ``estimator_parser`` is
+the blur estimator trainer's (JAX ``cli/train_blur_estimator.py:35-51``).
 """
 
 from __future__ import annotations
@@ -18,14 +18,15 @@ from typing import Optional
 # dest -> what the port supports; any other value raises.
 _SUPPORTED = {
     "dataset": ("coco",),
-    "model": ("fasterrcnn_resnet50_fpn",),
+    "model": ("fasterrcnn_resnet50_fpn", "mobile_net", "resnet_50"),
 }
 # Flags whose every non-default value raises.
-UNPORTED = ("blurred_dataset", "expand_synth_boxes", "image_output_dir")
+UNPORTED = ("image_output_dir",)
 # Flags that only cli.evaluate reads (JAX's cli/train.py never does).
 EVAL_ONLY = (
     "deblur_first", "deblurer_model_location",
     "use_ensemble", "ensemble_model_paths", "blur_estimator_path", "LEHE",
+    "blurred_dataset", "expand_synth_boxes",
 )
 
 
@@ -168,12 +169,15 @@ def set_flags(parser: argparse.ArgumentParser, args: argparse.Namespace,
 
 
 def refuse_unported(parser: argparse.ArgumentParser,
-                    args: argparse.Namespace, not_read=()) -> None:
+                    args: argparse.Namespace, not_read=(),
+                    datasets=_SUPPORTED["dataset"]) -> None:
     """Raise ``NotImplementedError`` naming every flag set to a value the
-    port does not support yet, and every flag of ``not_read`` (those the
-    calling CLI does not read) that was set."""
+    port does not support yet (``--dataset`` outside ``datasets``), and
+    every flag of ``not_read`` (those the calling CLI does not read) that
+    was set."""
     asked = set_flags(parser, args, UNPORTED)
-    asked += [f"--{d} {getattr(args, d)}" for d, ok in _SUPPORTED.items()
+    supported = dict(_SUPPORTED, dataset=tuple(datasets))
+    asked += [f"--{d} {getattr(args, d)}" for d, ok in supported.items()
               if getattr(args, d) not in ok]
     if args.world_size > 1:
         asked.append(f"--world-size {args.world_size}")

@@ -21,14 +21,26 @@ each image after the blur and the corruptions. ``--use_ensemble`` with four
 ensemble: the ``--blur_estimator_path`` checkpoint of
 ``cli.train_blur_estimator`` (4 classes with ``--LEHE``, else 16) picks a
 specialist per image, or, without it, the true blur struct does.
-Natural-blur datasets raise ``NotImplementedError``.
+
+``--model mobile_net`` / ``resnet_50`` evaluate the single-map detectors
+(``models/backbones.py``); their ``.pth`` is an ImageNet classifier's
+torso (MobileNetV2's running statistics with a count of 16), the heads
+stay random, as in JAX. ``--blurred_dataset`` evaluates a natural-blur
+set (``data/natural_datasets.py``: GOPRO, GOPROSynth, GOPROSynthLoad,
+REDS, RealBlur, VidBlur) instead of COCO: batch 1 in the source bucket
+736x1312, no synthetic blur, every remedy the flags ask for, against a
+COCO index built from the set's pseudo ground truth;
+``--expand_synth_boxes`` walks GOPROSynth's boxes through its optical
+flow.
 
 Refused with ``ValueError``, where the JAX CLI goes wrong: ``--deblur_first``
 without a model path (JAX evaluates without deblurring) or a path without
 the flag; ``--use_ensemble`` with ``--mode_one_norm`` or
 ``--unfrozen_batch_norm`` (JAX fails on an assert), without exactly four
 paths (an ``assert`` in JAX), or with ``--resume`` /
-``--start_from_weights``; the ensemble's flags without ``--use_ensemble``.
+``--start_from_weights``; the ensemble's flags without ``--use_ensemble``;
+``--expand_synth_boxes`` without ``--blurred_dataset GOPROSynth`` (JAX
+ignores it).
 """
 
 from __future__ import annotations
@@ -50,8 +62,10 @@ from detectinblur_tpu_torch.data.blur_sampling import (
 )
 from detectinblur_tpu_torch.data.coco import get_coco
 from detectinblur_tpu_torch.data.loader import DetectionLoader
+from detectinblur_tpu_torch.data.natural_datasets import get_natural_dataset
 from detectinblur_tpu_torch.ops.psf import EVAL_FRACTIONS, EVAL_PARAMS
 from detectinblur_tpu_torch.parallel.dist import process_count, process_index
+from detectinblur_tpu_torch.models.backbones import SingleMapFasterRCNN
 from detectinblur_tpu_torch.models.classifier import ResNetClassifier
 from detectinblur_tpu_torch.models.deblur import MSResNet
 from detectinblur_tpu_torch.models.ensemble import (
@@ -60,31 +74,50 @@ from detectinblur_tpu_torch.models.ensemble import (
 )
 from detectinblur_tpu_torch.train.checkpoint import restore_weights
 from detectinblur_tpu_torch.train.engine import make_eval_step
-from detectinblur_tpu_torch.train.eval_loop import evaluate_coco
+from detectinblur_tpu_torch.train.eval_loop import (
+    dataset_to_coco_index,
+    evaluate_coco,
+)
 from detectinblur_tpu_torch.utils.convert import (
     deepdeblur_from_torch,
     load_torch_state_dict,
     params_from_torchvision,
+    torso_from_torchvision,
 )
 from detectinblur_tpu_torch.utils.device import resolve_device
 from detectinblur_tpu_torch.utils.logging import ScalarWriter
 
 
+# The natural-blur sets' one source bucket (GOPRO's 720x1280 frames).
+NATURAL_SOURCE_BUCKETS = ((736, 1312),)
+
+
 def load_params(model, path: str):
     """Weights into ``model``: a ``.pth`` holds torchvision (or reference
     checkpoint) weights, anything else is the port's own checkpoint or a
-    bare state dict of the port. A ``bn_mode`` model takes a ``.pth``'s
-    BatchNorms unfolded, ``num_batches_tracked`` set to 16 as the
-    reference's evaluate.py:234-237 sets it; the port's own checkpoint
+    bare state dict of the port. A model with BatchNorm statistics takes a
+    ``.pth``'s BatchNorms unfolded, ``num_batches_tracked`` set to 16 as
+    the reference's evaluate.py:234-237 sets it; the port's own checkpoint
     keeps the statistics and count it was saved with, or, if it holds none
-    (a FrozenBatchNorm model wrote it), the model's fresh ones."""
-    bn = model.cfg.bn_mode is not None
+    (a FrozenBatchNorm model wrote it), the model's fresh ones. A
+    single-map detector's ``.pth`` is an ImageNet classifier: only its
+    torso loads, the heads stay the model's random ones (JAX
+    ``load_params``)."""
     if path.endswith(".pth"):
+        sd = load_torch_state_dict(path)
+        if isinstance(model, SingleMapFasterRCNN):
+            model.load_state_dict({**model.state_dict(),
+                                   **torso_from_torchvision(
+                                       sd, model.cfg.backbone,
+                                       frozen_bn=model.cfg.bn_mode is None,
+                                       num_batches=16.0)})
+            print("loaded ImageNet torso weights; detection heads are random")
+            return model
         model.load_state_dict(params_from_torchvision(
-            load_torch_state_dict(path), model.cfg.num_classes,
-            frozen_bn=not bn, num_batches=16.0))
+            sd, model.cfg.num_classes, frozen_bn=not model.has_bn,
+            num_batches=16.0))
         return model
-    return restore_weights(path, model, fresh_bn_stats=bn)
+    return restore_weights(path, model, fresh_bn_stats=model.has_bn)
 
 
 def load_estimator(path: str, n_classes: int, device) -> ResNetClassifier:
@@ -110,6 +143,9 @@ def check_remedy_flags(args) -> None:
     if args.deblur_first != bool(args.deblurer_model_location):
         raise ValueError("--deblur_first and --deblurer_model_location go "
                          "together")
+    if args.expand_synth_boxes and args.blurred_dataset != "GOPROSynth":
+        raise ValueError("--expand_synth_boxes needs --blurred_dataset "
+                         "GOPROSynth (the only set with optical flow)")
     if not args.use_ensemble:
         given = [f"--{d}" for d in ("ensemble_model_paths",
                                     "blur_estimator_path", "LEHE")
@@ -132,18 +168,22 @@ def check_remedy_flags(args) -> None:
 
 def run_cell(args, model, dataset_val, policy: BlurPolicy, psf_bank,
              step_cache: Optional[dict] = None, ensemble=None,
-             deblurrer: Optional[MSResNet] = None) -> np.ndarray:
-    """One COCO eval (engine.py:220-416 of the reference) under ``policy``:
-    batch 1, each image at its own model bucket, the eval steps cached by
-    bucket in ``step_cache`` (shared across the sweep's cells). With
-    ``ensemble`` = (``Specialists``, estimator or None) each image goes to
-    the specialist chosen for it (``model`` is their template). Prints the
-    distinct model buckets this eval met and, for the ensemble, how many
-    images each specialist got."""
+             deblurrer: Optional[MSResNet] = None,
+             source_buckets=None, coco_index=None) -> np.ndarray:
+    """One COCO eval (engine.py:220-416 of the reference) of
+    ``dataset_val`` under ``policy``: batch 1 in ``source_buckets`` (the
+    loader's default when None), each image at its own model bucket, the
+    eval steps cached by bucket in ``step_cache`` (shared across the
+    sweep's cells), scored against ``coco_index`` (the dataset's own when
+    None). With ``ensemble`` = (``Specialists``, estimator or None) each
+    image goes to the specialist chosen for it (``model`` is their
+    template). Prints the distinct model buckets this eval met and, for
+    the ensemble, how many images each specialist got."""
     loader = DetectionLoader(
         dataset_val, 1, policy, psf_bank, shuffle=False,
-        num_processes=process_count(), process_index=process_index(),
-        drop_last=False, num_workers=args.workers)
+        source_buckets=source_buckets, num_processes=process_count(),
+        process_index=process_index(), drop_last=False,
+        num_workers=args.workers)
     blur = policy.prob > 0
     expand = args.expand_target_boxes and blur
     eval_steps = step_cache if step_cache is not None else {}
@@ -172,9 +212,10 @@ def run_cell(args, model, dataset_val, policy: BlurPolicy, psf_bank,
         choices.append(index)
         return dets, gt
 
-    stats, _ = evaluate_coco(eval_step, model, loader, dataset_val.index,
-                             expand_target_boxes=expand,
-                             early_stop=args.early_stop)
+    stats, _ = evaluate_coco(
+        eval_step, model, loader,
+        dataset_val.index if coco_index is None else coco_index,
+        expand_target_boxes=expand, early_stop=args.early_stop)
     print(f"model buckets met: {len(met)} {sorted(met)}")
     if choices:
         counts = torch.bincount(torch.stack(choices).cpu(), minlength=4)
@@ -183,8 +224,8 @@ def run_cell(args, model, dataset_val, policy: BlurPolicy, psf_bank,
 
 
 def main(argv=None):
-    """Returns the 19 stats of a clean eval, or {(param_index,
-    fraction_index): stats} for the blur sweep."""
+    """Returns the 19 stats of a clean or a natural-blur eval, or
+    {(param_index, fraction_index): stats} for the blur sweep."""
     parser = eval_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
@@ -213,10 +254,25 @@ def main(argv=None):
     deblurrer = (load_deblurrer(args.deblurer_model_location, device)
                  if args.deblur_first else None)
     cell = functools.partial(run_cell, ensemble=ensemble, deblurrer=deblurrer)
-    dataset_val = get_coco(args.data_path, "val")
 
     writer = ScalarWriter(args.tensorboard_path)
     try:
+        if args.blurred_dataset:
+            # Pre-blurred images: no synthetic blur, every other remedy
+            # (evaluate.py:240-290 of the reference).
+            kw = ({"expand_boxes": args.expand_synth_boxes}
+                  if args.blurred_dataset == "GOPROSynth" else {})
+            ds = get_natural_dataset(args.blurred_dataset, args.data_path,
+                                     **kw)
+            stats = cell(args, model, ds, BlurPolicy(prob=0.0), None,
+                         source_buckets=NATURAL_SOURCE_BUCKETS,
+                         coco_index=dataset_to_coco_index(ds))
+            for name, value in zip(BLUR_STAT_TAGS, stats[:12]):
+                writer.add_scalar(f"{args.blurred_dataset}/{name}",
+                                  float(value), 0)
+            return stats
+
+        dataset_val = get_coco(args.data_path, "val")
         if args.vanilla_eval or not args.blur_eval:
             stats = cell(args, model, dataset_val, BlurPolicy(prob=0.0), None)
             for name, value in zip(BLUR_STAT_TAGS, stats[:12]):

@@ -4,7 +4,9 @@
         --blur_train --expand_target_boxes [--device cpu]
 
 Port of ``detectinblur_tpu/cli/train.py`` (train.py:89-391 of the
-reference), in one process: COCO train split -> loader (AugMix, hflip
+reference), in one process, for ``--model`` ``fasterrcnn_resnet50_fpn``
+(the default), ``mobile_net`` or ``resnet_50`` (the single-map detectors
+of ``models/backbones.py``): COCO train split -> loader (AugMix, hflip
 0.5, blur decisions) -> PSF bank (generated on the card, or stored) ->
 per-batch train steps (blur, corruptions, GT expansion, loss, backward,
 SGD), the non-finite loss guard, a checkpoint each epoch and a clean plus
@@ -15,7 +17,12 @@ BatchNorms in ``train`` mode, also in the evals), ``--add_noise``,
 ``--add_block``, ``--add_jpeg_artefacts`` and the AugMix flags. Flags the
 port does not have yet raise ``NotImplementedError`` (``cli/args.py``);
 DDP training (``--world-size`` > 1) is among them. So do the flags of
-deblur-first and of the ensemble, which only ``cli.evaluate`` reads.
+deblur-first, of the ensemble and of the natural-blur datasets, which
+only ``cli.evaluate`` reads.
+
+As in JAX, each batch's model bucket comes from ``model_bucket_for_batch``
+with the FPN's 800/1333 for every model, so a single-map detector resizes
+to 300/500 inside a larger canvas (ROADMAP, Queue 3).
 """
 
 from __future__ import annotations
@@ -42,7 +49,15 @@ from detectinblur_tpu_torch.data.blur_sampling import (
 )
 from detectinblur_tpu_torch.data.coco import get_coco
 from detectinblur_tpu_torch.data.loader import DetectionLoader
-from detectinblur_tpu_torch.models.faster_rcnn import FasterRCNN, FasterRCNNConfig
+from detectinblur_tpu_torch.models.backbones import (
+    SingleMapConfig,
+    SingleMapFasterRCNN,
+)
+from detectinblur_tpu_torch.models.faster_rcnn import (
+    FasterRCNN,
+    FasterRCNNConfig,
+    TwoStageDetector,
+)
 from detectinblur_tpu_torch.ops.psf import BLUR_PARAMS, EVAL_PARAMS
 from detectinblur_tpu_torch.parallel.dist import process_count, process_index
 from detectinblur_tpu_torch.train.checkpoint import (
@@ -56,6 +71,7 @@ from detectinblur_tpu_torch.train.state import TrainState, create_train_state, m
 from detectinblur_tpu_torch.utils.convert import (
     load_torch_state_dict,
     params_from_torchvision,
+    torso_from_torchvision,
 )
 from detectinblur_tpu_torch.utils.device import resolve_device
 from detectinblur_tpu_torch.utils.logging import ScalarWriter
@@ -72,34 +88,56 @@ class TrainRun(NamedTuple):
     evals: Dict[str, np.ndarray]        # "{Normal,Blurred}/{epoch}" -> 19 stats
 
 
-def build_model(args, device) -> FasterRCNN:
-    """Faster R-CNN ResNet50-FPN with COCO's 91 classes on ``device``
-    (``--model`` and ``--dataset`` take no other value yet), warping
-    inside with ``--warp_in_model``, its BatchNorms in the mode the flags
-    ask for (``bn_mode_for``)."""
+# --model -> the single-map detector's torso (JAX cli/train.py:38-58).
+SINGLE_MAP_TORSOS = {"mobile_net": "mobile_net", "resnet_50": "resnet50"}
+
+
+def build_model(args, device) -> TwoStageDetector:
+    """The ``--model`` detector with COCO's 91 classes on ``device``:
+    Faster R-CNN ResNet50-FPN, warping inside with ``--warp_in_model``, or
+    the single-map ``mobile_net`` / ``resnet_50`` (min 300 / max 500,
+    no warp: JAX's build ignores the flag); the BatchNorms in the mode
+    the flags ask for (``bn_mode_for``)."""
+    if args.model in SINGLE_MAP_TORSOS:
+        return SingleMapFasterRCNN(SingleMapConfig(
+            SINGLE_MAP_TORSOS[args.model], num_classes=91,
+            bn_mode=bn_mode_for(args)), device=device)
     return FasterRCNN(FasterRCNNConfig(
         num_classes=91, warp_internally=args.warp_in_model,
         bn_mode=bn_mode_for(args)), device=device)
 
 
-def load_initial_params(args, model: FasterRCNN) -> FasterRCNN:
+def load_initial_params(args, model: TwoStageDetector) -> TwoStageDetector:
     """``--pretrained`` or a ``.pth`` ``--start_from_weights``: torchvision
-    detector weights into ``model``. Only ``--pretrained``'s default file
-    (``{output_dir}/fasterrcnn_resnet50_fpn_coco.pth``) may be missing;
-    then training starts from scratch. A ``bn_mode`` model takes the
-    BatchNorms unfolded (gamma, beta and the running statistics of the
-    file), where the JAX package folds them and starts from fresh
-    statistics (ROADMAP, Queue 3)."""
+    weights into ``model``; only ``--pretrained``'s default file may be
+    missing, and then training starts from scratch.
+
+    The FPN detector takes a whole detector
+    (``{output_dir}/fasterrcnn_resnet50_fpn_coco.pth``); a ``bn_mode``
+    model takes its BatchNorms unfolded (gamma, beta and the running
+    statistics of the file), where the JAX package folds them and starts
+    from fresh statistics (ROADMAP, Queue 3). A single-map detector takes
+    an ImageNet classifier's torso (``{output_dir}/{backbone}_imagenet.pth``:
+    MobileNetV2 with its running statistics, or the resnet trunk, folded
+    unless ``bn_mode``) and keeps its random heads, as JAX does."""
     if not (args.pretrained or args.start_from_weights.endswith(".pth")):
         return model
-    path = args.start_from_weights or os.path.join(
-        args.output_dir, "fasterrcnn_resnet50_fpn_coco.pth")
+    single = isinstance(model, SingleMapFasterRCNN)
+    default = (f"{model.cfg.backbone}_imagenet.pth" if single
+               else "fasterrcnn_resnet50_fpn_coco.pth")
+    path = args.start_from_weights or os.path.join(args.output_dir, default)
     if not args.start_from_weights and not os.path.exists(path):
         print(f"pretrained weights not found at {path}; training from scratch")
         return model
+    sd = load_torch_state_dict(path)
+    if single:
+        model.load_state_dict({**model.state_dict(), **torso_from_torchvision(
+            sd, model.cfg.backbone, frozen_bn=model.cfg.bn_mode is None)})
+        print(f"loaded ImageNet torso weights from {path}; the detection "
+              "heads stay random")
+        return model
     model.load_state_dict(params_from_torchvision(
-        load_torch_state_dict(path), model.cfg.num_classes,
-        frozen_bn=model.cfg.bn_mode is None))
+        sd, model.cfg.num_classes, frozen_bn=model.cfg.bn_mode is None))
     print(f"loaded torch weights from {path}")
     return model
 

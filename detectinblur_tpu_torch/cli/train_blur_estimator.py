@@ -24,8 +24,11 @@ checkpoint, ``model_{epochs - 1}.pt``, running statistics included.
 ``--start_from_weights`` loads a torchvision resnet18 trunk and keeps the
 fresh ``fc``; a missing file raises (JAX trains from scratch). Another
 ``--start_from_weights`` is a checkpoint of this CLI. ``--dataset
-GOPROBlurEst`` is not ported yet (natural-blur datasets), and the common
-flags this CLI does not read raise ``NotImplementedError``.
+GOPROBlurEst`` trains and evaluates on a rendered GOPRO set's split lists
+(``cli/dataset_tools.py segment-gopro``): pre-blurred images with their
+stored LEHE class, so it requires ``--LEHE_blur_seg`` as in JAX (the
+16-class labels would all be 0). The common flags this CLI does not read
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from detectinblur_tpu_torch.data.batching import model_bucket_for
 from detectinblur_tpu_torch.data.blur_sampling import BlurPolicy, generate_psf_bank
 from detectinblur_tpu_torch.data.coco import get_coco
 from detectinblur_tpu_torch.data.loader import DetectionLoader
+from detectinblur_tpu_torch.data.natural_datasets import GOPROBlurEst
 from detectinblur_tpu_torch.models.classifier import ResNetClassifier
 from detectinblur_tpu_torch.parallel.dist import process_count, process_index
 from detectinblur_tpu_torch.train.checkpoint import (
@@ -111,7 +115,11 @@ def load_initial_weights(args, classifier: ResNetClassifier) -> None:
 def main(argv=None) -> EstimatorRun:
     parser = estimator_parser()
     args = parser.parse_args(argv)
-    refuse_unported(parser, args, not_read=NOT_READ)
+    refuse_unported(parser, args, not_read=NOT_READ,
+                    datasets=("coco", "GOPROBlurEst"))
+    if args.dataset == "GOPROBlurEst" and not args.LEHE_blur_seg:
+        raise ValueError("--dataset GOPROBlurEst requires --LEHE_blur_seg: "
+                         "its stored labels are LEHE classes")
     device = resolve_device(args.device)
     np.random.seed(1337)
 
@@ -124,8 +132,12 @@ def main(argv=None) -> EstimatorRun:
                              bank_size=512)
     print(f"PSF bank {bank.shape} generated on {device} in "
           f"{time.perf_counter() - t0:.3f} s")
-    dataset = get_coco(args.data_path, "train")
-    dataset_val = get_coco(args.data_path, "val")
+    if args.dataset == "GOPROBlurEst":
+        dataset = GOPROBlurEst(args.data_path, "train")
+        dataset_val = GOPROBlurEst(args.data_path, "val")
+    else:
+        dataset = get_coco(args.data_path, "train")
+        dataset_val = get_coco(args.data_path, "val")
     loader = DetectionLoader(
         dataset, args.batch_size, policy, bank, shuffle=True, hflip_prob=0.5,
         num_processes=process_count(), process_index=process_index(),

@@ -11,7 +11,10 @@ Port of ``detectinblur_tpu/models/faster_rcnn.py`` (``FasterRCNNConfig``
        the CPU) -> TwoMLPHead + predictor -> postprocess -> boxes rescaled
        to input coordinates.
 
-``predict`` is the composition of the public stage methods
+The stages shared with the single-map detectors (``models/backbones.py``)
+live in ``TwoStageDetector``; a detector brings its backbone's
+``features``, its anchors and its pooling. ``predict`` is the composition
+of the public stage methods
 ``preprocess``, ``features``, ``propose``, ``pool`` and ``detect``, which
 a caller may also run one by one (the smoke script times them so). Each
 runs inside a ``torch.profiler.record_function`` range (``predict.rpn``
@@ -106,54 +109,21 @@ class LossDraws(NamedTuple):
     roi: Tuple[torch.Tensor, torch.Tensor]
 
 
-class FasterRCNN(nn.Module):
-    """Parameters live in the submodules ``backbone`` / ``rpn_head`` /
-    ``box_head`` / ``box_predictor``, named as the JAX param tree's top
-    level so ``utils/convert.params_from_jax`` maps onto them.
-
-    The model is built on ``device`` (CUDA unless the caller asks for
-    another), initialised from a ``torch.Generator`` seeded with ``seed``
-    as the JAX initialisers do: kaiming-normal fan_out trunk, kaiming
-    uniform a=1 FPN, N(0, 0.01) RPN head, torch Linear defaults for the
-    box head and predictor."""
-
-    def __init__(self, config: FasterRCNNConfig = FasterRCNNConfig(),
-                 device=None, seed: int = 0):
-        super().__init__()
-        check_precision(config.precision)
-        self.cfg = config
-        device = resolve_device(device)
-        # Built on the CPU (or on `meta`, for shapes only) and moved after
-        # the seeded initialisation, so the weights do not depend on the
-        # device.
-        with torch.device("meta" if device.type == "meta" else "cpu"):
-            self.backbone = ResNetFPN(act_dtype=act_dtype(config.precision),
-                                      bn_mode=config.bn_mode)
-            self.rpn_head = RPNHead()
-            self.box_head = TwoMLPHead()
-            self.box_predictor = FastRCNNPredictor(
-                num_classes=config.num_classes)
-        if device.type != "meta":
-            self.reset_parameters(torch.Generator().manual_seed(seed))
-        self._anchors = {}
-        if device.type == "cuda":
-            set_fp32_math()
-        self.to(device=device, memory_format=torch.channels_last)
-        self.eval()
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        self.backbone.reset_parameters(generator)
-        self.rpn_head.reset_parameters(generator)
-        for m in (*self.box_head.children(), *self.box_predictor.children()):
-            # torch nn.Linear default init, drawn from the generator.
-            bound = 1.0 / m.in_features ** 0.5
-            nn.init.kaiming_uniform_(m.weight, a=5 ** 0.5, generator=generator)
-            nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+class TwoStageDetector(nn.Module):
+    """The stages that every Faster R-CNN of the port shares: preprocess,
+    propose, detect, and ``predict`` / ``loss`` over them. A detector
+    gives ``cfg`` (``precision``, ``min_size``, ``max_size``, ``rpn``,
+    ``box``), the submodules ``backbone`` / ``rpn_head`` / ``box_head`` /
+    ``box_predictor``, and its own ``features``, ``level_anchors`` and
+    ``pool``; ``_training_torso`` is the backbone's state while ``loss``
+    runs it."""
 
     @property
     def device(self) -> torch.device:
         return self.rpn_head.conv.weight.device
+
+    def _training_torso(self):
+        return training_mode(self.backbone)
 
     # ------------------------------------------------------------- stages
     def preprocess(self, images: torch.Tensor, hw, bucket: Tuple[int, int],
@@ -163,45 +133,11 @@ class FasterRCNN(nn.Module):
         return preprocess_batch(images, hw, bucket, self.cfg.min_size,
                                 self.cfg.max_size, means=means, stds=stds)
 
-    def features(self, batched: torch.Tensor,
-                 thetas: Optional[torch.Tensor] = None,
-                 lam1s: Optional[torch.Tensor] = None,
-                 lam2s: Optional[torch.Tensor] = None):
-        """-> (P2, P3, P4, P5, P6) NHWC in the activation dtype; with
-        ``warp_internally``, the images warped by (``thetas``, ``lam1s``,
-        ``lam2s``) [B] first and each level warped back after."""
-        if not self.cfg.warp_internally:
-            return self.backbone(batched)
-        if thetas is None or lam1s is None or lam2s is None:
-            raise ValueError("a warp_internally model needs thetas, lam1s "
-                             "and lam2s")
-        t, l1, l2 = (x.to(batched.device) for x in (thetas, lam1s, lam2s))
-        feats = self.backbone(squint_warp(batched, t, l1, l2))
-        return tuple(squint_warp(f, t, 1.0 / l1, 1.0 / l2) for f in feats)
-
-    def level_anchors(self, feats):
-        """``rpn.level_anchors`` for these feature shapes, cached."""
-        key = tuple(tuple(f.shape[1:3]) for f in feats)
-        if key not in self._anchors:
-            self._anchors[key] = level_anchors(feats)
-        return self._anchors[key]
-
     def propose(self, feats, new_hw: torch.Tensor):
         """-> (proposals [B, P, 4], valid [B, P])."""
         out = run_rpn(self.rpn_head, feats, new_hw, self.cfg.rpn,
                       anchors=self.level_anchors(feats))
         return out.proposals, out.proposal_valid
-
-    def pool(self, feats, proposals: torch.Tensor, valid: torch.Tensor):
-        """RoIAlign of the proposals on P2..P5 -> [B, P, 7, 7, C].
-
-        Invalid slots carry NMS-suppressed boxes whose outputs are masked
-        out later; they are zeroed first, as in the JAX version."""
-        rois = torch.where(valid[..., None], proposals,
-                           torch.zeros_like(proposals))
-        # Channels-last levels are contiguous NHWC already (a no-op).
-        return multiscale_roi_align_cuda([f.contiguous() for f in feats[:4]],
-                                         rois)
 
     def detect(self, pooled: torch.Tensor, proposals: torch.Tensor,
                valid: torch.Tensor, new_hw: torch.Tensor,
@@ -280,7 +216,7 @@ class FasterRCNN(nn.Module):
         gt_labels = gt_labels.to(device)
         gt_valid = gt_valid.to(device).bool()
 
-        with training_mode(self.backbone):
+        with self._training_torso():
             feats = self.features(batched, thetas, lam1s, lam2s)
         rpn = run_rpn(self.rpn_head, feats, new_hw, cfg.rpn,
                       anchors=self.level_anchors(feats), training=True)
@@ -308,3 +244,96 @@ class FasterRCNN(nn.Module):
             "loss_classifier": ce_sum.sum() / n_tot,
             "loss_box_reg": box_sum.sum() / n_tot,
         }
+
+
+def reset_box_heads(detector: nn.Module, generator: torch.Generator) -> None:
+    """torch nn.Linear's default init of the box head and predictor,
+    drawn from ``generator`` (the JAX TORCH_LINEAR initialisers)."""
+    with torch.no_grad():
+        for m in (*detector.box_head.children(),
+                  *detector.box_predictor.children()):
+            bound = 1.0 / m.in_features ** 0.5
+            nn.init.kaiming_uniform_(m.weight, a=5 ** 0.5, generator=generator)
+            nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+
+
+class FasterRCNN(TwoStageDetector):
+    """Parameters live in the submodules ``backbone`` / ``rpn_head`` /
+    ``box_head`` / ``box_predictor``, named as the JAX param tree's top
+    level so ``utils/convert.params_from_jax`` maps onto them.
+
+    The model is built on ``device`` (CUDA unless the caller asks for
+    another), initialised from a ``torch.Generator`` seeded with ``seed``
+    as the JAX initialisers do: kaiming-normal fan_out trunk, kaiming
+    uniform a=1 FPN, N(0, 0.01) RPN head, torch Linear defaults for the
+    box head and predictor."""
+
+    def __init__(self, config: FasterRCNNConfig = FasterRCNNConfig(),
+                 device=None, seed: int = 0):
+        super().__init__()
+        check_precision(config.precision)
+        self.cfg = config
+        device = resolve_device(device)
+        # Built on the CPU (or on `meta`, for shapes only) and moved after
+        # the seeded initialisation, so the weights do not depend on the
+        # device.
+        with torch.device("meta" if device.type == "meta" else "cpu"):
+            self.backbone = ResNetFPN(act_dtype=act_dtype(config.precision),
+                                      bn_mode=config.bn_mode)
+            self.rpn_head = RPNHead()
+            self.box_head = TwoMLPHead()
+            self.box_predictor = FastRCNNPredictor(
+                num_classes=config.num_classes)
+        if device.type != "meta":
+            self.reset_parameters(torch.Generator().manual_seed(seed))
+        self._anchors = {}
+        if device.type == "cuda":
+            set_fp32_math()
+        self.to(device=device, memory_format=torch.channels_last)
+        self.eval()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.backbone.reset_parameters(generator)
+        self.rpn_head.reset_parameters(generator)
+        reset_box_heads(self, generator)
+
+    @property
+    def has_bn(self) -> bool:
+        """The backbone has BatchNorms with running statistics."""
+        return self.cfg.bn_mode is not None
+
+    # ------------------------------------------------------------- stages
+    def features(self, batched: torch.Tensor,
+                 thetas: Optional[torch.Tensor] = None,
+                 lam1s: Optional[torch.Tensor] = None,
+                 lam2s: Optional[torch.Tensor] = None):
+        """-> (P2, P3, P4, P5, P6) NHWC in the activation dtype; with
+        ``warp_internally``, the images warped by (``thetas``, ``lam1s``,
+        ``lam2s``) [B] first and each level warped back after."""
+        if not self.cfg.warp_internally:
+            return self.backbone(batched)
+        if thetas is None or lam1s is None or lam2s is None:
+            raise ValueError("a warp_internally model needs thetas, lam1s "
+                             "and lam2s")
+        t, l1, l2 = (x.to(batched.device) for x in (thetas, lam1s, lam2s))
+        feats = self.backbone(squint_warp(batched, t, l1, l2))
+        return tuple(squint_warp(f, t, 1.0 / l1, 1.0 / l2) for f in feats)
+
+    def level_anchors(self, feats):
+        """``rpn.level_anchors`` for these feature shapes, cached."""
+        key = tuple(tuple(f.shape[1:3]) for f in feats)
+        if key not in self._anchors:
+            self._anchors[key] = level_anchors(feats)
+        return self._anchors[key]
+
+    def pool(self, feats, proposals: torch.Tensor, valid: torch.Tensor):
+        """RoIAlign of the proposals on P2..P5 -> [B, P, 7, 7, C].
+
+        Invalid slots carry NMS-suppressed boxes whose outputs are masked
+        out later; they are zeroed first, as in the JAX version."""
+        rois = torch.where(valid[..., None], proposals,
+                           torch.zeros_like(proposals))
+        # Channels-last levels are contiguous NHWC already (a no-op).
+        return multiscale_roi_align_cuda([f.contiguous() for f in feats[:4]],
+                                         rois)

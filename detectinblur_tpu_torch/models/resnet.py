@@ -7,13 +7,18 @@ Convolutions run channels-last: the NHWC input permuted to NCHW is already
 a channels-last tensor, and so are all activations after it. The public
 boundary stays NHWC, as in the JAX package.
 
-FrozenBatchNorm is the affine (scale, bias) pair of the JAX version, kept
-as buffers; a fresh module is the identity. With ``bn_mode`` set, the
-backbone's BatchNorms are ``models/batchnorm.AdaptiveBatchNorm`` in that
-mode instead (the JAX ``norm`` argument, :135,164,197,260).
+FrozenBatchNorm is the affine (scale, bias) pair of the JAX version; a
+fresh module is the identity. The FPN detector keeps the pair as buffers
+(its freeze mask never trains them); ``trainable=True`` makes them
+parameters, as in JAX, for the single-map ResNet torso, whose affines
+train (``models/backbones.py``). With ``bn_mode`` set, the backbone's
+BatchNorms are ``models/batchnorm.AdaptiveBatchNorm`` in that mode
+instead (the JAX ``norm`` argument, :135,164,197,260).
 
-The trunk is the JAX arch table's ``resnet50`` (``Bottleneck``) or
-``resnet18`` (``BasicBlock``, the blur estimator's, :160,181).
+The trunks are the JAX arch table's (:180-189): ``resnet18``/``34``
+(``BasicBlock``; resnet18 is the blur estimator's) and
+``resnet50``/``101``/``152`` (``Bottleneck``; resnet50 is the FPN's and
+``--model resnet_50``'s).
 
 Parameters stay float32 in every precision; ``Conv2d`` and ``Linear`` cast
 their weights to the dtype they compute in on each call, as the JAX
@@ -63,12 +68,17 @@ class Linear(nn.Linear):
 
 
 class FrozenBatchNorm(nn.Module):
-    """Affine-only BatchNorm over NCHW: y = x * scale + bias."""
+    """Affine-only BatchNorm over NCHW: y = x * scale + bias, the pair
+    buffers, or parameters with ``trainable``."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, trainable: bool = False):
         super().__init__()
-        self.register_buffer("scale", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        if trainable:
+            self.scale = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.register_buffer("scale", torch.ones(features))
+            self.register_buffer("bias", torch.zeros(features))
 
     def forward(self, x):
         return (x * self.scale.to(x.dtype)[:, None, None]
@@ -160,10 +170,14 @@ def reset_trunk(module: nn.Module, generator: torch.Generator,
                     m.num_batches_tracked.zero_()
 
 
-# arch -> (block, blocks per stage), the JAX RESNET_SPECS rows ported.
+# arch -> (block, blocks per stage), the JAX RESNET_SPECS rows but its
+# grouped resnext101_32x8d (no CLI choice builds it).
 RESNET_SPECS = {
     "resnet18": (BasicBlock, (2, 2, 2, 2)),
+    "resnet34": (BasicBlock, (3, 4, 6, 3)),
     "resnet50": (Bottleneck, (3, 4, 6, 3)),
+    "resnet101": (Bottleneck, (3, 4, 23, 3)),
+    "resnet152": (Bottleneck, (3, 8, 36, 3)),
 }
 
 

@@ -20,7 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from detectinblur_tpu_torch.models.anchors import grid_anchors
+from detectinblur_tpu_torch.models.anchors import (
+    ANCHOR_SIZES,
+    ASPECT_RATIOS,
+    grid_anchors,
+)
 from detectinblur_tpu_torch.models.resnet import Conv2d
 from detectinblur_tpu_torch.ops.boxes import (
     box_iou,
@@ -34,13 +38,18 @@ from detectinblur_tpu_torch.ops.nms import NEG_INF, grouped_nms_presorted
 class RPNHead(nn.Module):
     """3x3 conv + 1x1 objectness / box-delta heads, shared across levels.
     Emits float32, whatever the activation dtype: objectness feeds
-    top-k/NMS ordering and the deltas feed box decode."""
+    top-k/NMS ordering and the deltas feed box decode.
 
-    def __init__(self, in_channels: int = 256, num_anchors: int = 3):
+    The 3x3 conv maps ``in_channels`` to ``width`` (256), as the JAX head
+    does whatever its input: the single-map detectors feed it 1280 or
+    2048 channels and 15 anchors a cell."""
+
+    def __init__(self, in_channels: int = 256, num_anchors: int = 3,
+                 width: int = 256):
         super().__init__()
-        self.conv = Conv2d(in_channels, in_channels, 3, padding=1)
-        self.cls_logits = Conv2d(in_channels, num_anchors, 1)
-        self.bbox_pred = Conv2d(in_channels, num_anchors * 4, 1)
+        self.conv = Conv2d(in_channels, width, 3, padding=1)
+        self.cls_logits = Conv2d(width, num_anchors, 1)
+        self.bbox_pred = Conv2d(width, num_anchors * 4, 1)
 
     def forward(self, features: Sequence[torch.Tensor]):
         """features: levels NHWC [B, H, W, C] -> (logits [B, H*W*A],
@@ -243,12 +252,18 @@ class RPNOutputs(NamedTuple):
 
 
 def level_anchors(features: Sequence[torch.Tensor],
-                  first_level_stride: int = 4):
-    """(anchors [sum_A, 4] on the features' device, anchors per level)."""
+                  first_level_stride: int = 4,
+                  anchor_sizes: Tuple[Tuple[float, ...], ...] = ANCHOR_SIZES,
+                  anchor_ratios: Tuple[Tuple[float, ...], ...] = ASPECT_RATIOS):
+    """(anchors [sum_A, 4] on the features' device, anchors per level).
+    The FPN detector's levels start at stride 4 with one size a level;
+    a single-map detector passes its one level's stride and a one-level
+    spec of every size (JAX ``run_rpn``'s ``anchor_sizes`` :264)."""
     feat_shapes = tuple((f.shape[1], f.shape[2]) for f in features)
     image_size = (int(features[0].shape[1] * first_level_stride),
                   int(features[0].shape[2] * first_level_stride))
-    anchors_np = grid_anchors(feat_shapes, image_size)
+    anchors_np = grid_anchors(feat_shapes, image_size, anchor_sizes,
+                              anchor_ratios)
     anchors = torch.from_numpy(np.concatenate(anchors_np, axis=0))
     return (anchors.to(features[0].device),
             tuple(a.shape[0] for a in anchors_np))
@@ -256,16 +271,23 @@ def level_anchors(features: Sequence[torch.Tensor],
 
 def run_rpn(head: RPNHead, features: Sequence[torch.Tensor],
             image_hw: torch.Tensor, cfg: RPNConfig = RPNConfig(),
-            anchors=None, training: bool = False) -> RPNOutputs:
-    """Run the RPN over a batch of NHWC levels P2..P6.
+            anchors=None, training: bool = False,
+            first_level_stride: int = 4,
+            anchor_sizes: Tuple[Tuple[float, ...], ...] = ANCHOR_SIZES,
+            anchor_ratios: Tuple[Tuple[float, ...], ...] = ASPECT_RATIOS
+            ) -> RPNOutputs:
+    """Run the RPN over a batch of NHWC levels: P2..P6, or a single-map
+    detector's one level with its stride and anchor spec.
 
     ``training`` selects the train top-k sizes. Proposals are decoded from
     detached deltas and objectness (the JAX version's ``stop_gradient``);
     ``objectness`` and ``pred_deltas`` keep their graph for the loss.
-    ``anchors`` may pass a cached ``level_anchors(features)`` result."""
+    ``anchors`` may pass a cached ``level_anchors`` result for these
+    features, stride and spec."""
     logits, deltas = head(features)
     if anchors is None:
-        anchors = level_anchors(features)
+        anchors = level_anchors(features, first_level_stride, anchor_sizes,
+                                anchor_ratios)
     anchors, anchors_per_level = anchors
     objectness = torch.cat(logits, dim=1)                 # [B, sum_A]
     pred_deltas = torch.cat(deltas, dim=1)                # [B, sum_A, 4]

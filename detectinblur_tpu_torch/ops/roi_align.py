@@ -1,11 +1,15 @@
-"""Multi-scale (FPN) RoIAlign: shared geometry and the plain torch version.
+"""RoIAlign, multi-scale (FPN) and single-level: shared geometry and the
+plain torch version.
 
 Port of ``detectinblur_tpu/ops/roi_align.py`` (``_bilinear_params`` :41,
-``_level_geometry`` :57, ``_assign_levels`` :353, ``multiscale_roi_align``
-:365) with torch ``roi_align(aligned=False)`` semantics: roi size clamped
-to >= 1, 2x2 samples per bin averaged over a 7x7 grid, samples outside
-[-1, size] contribute 0. Levels follow torchvision's LevelMapper,
-``floor(4 + log2(sqrt(area)/224 + 1e-6))`` clamped to P2..P5.
+``_level_geometry`` :57, ``roi_align_single_level`` :253,
+``_assign_levels`` :353, ``multiscale_roi_align`` :365) with torch
+``roi_align(aligned=False)`` semantics: roi size clamped to >= 1, 2x2
+samples per bin averaged over a 7x7 grid, samples outside [-1, size]
+contribute 0. Levels follow torchvision's LevelMapper,
+``floor(4 + log2(sqrt(area)/224 + 1e-6))`` clamped to P2..P5. A
+single-map detector pools every roi from its one level at that level's
+scale (1/32): the same geometry with the level fixed at 0.
 
 ``roi_geometry`` computes each roi's level and its sample indices and
 weights ONCE, in torch. Both the plain version here (the CPU path and the
@@ -22,7 +26,7 @@ the CPU path of the gradient and the oracle of the CUDA backward kernel.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -32,7 +36,7 @@ LEVEL_SCALES = (0.25, 0.125, 0.0625, 0.03125)
 class RoIGeometry(NamedTuple):
     """Per-roi sampling table, N = B*R rois, S = output_size *
     sampling_ratio sample positions per axis."""
-    level: torch.Tensor   # [N] int32, 0..3 for P2..P5
+    level: torch.Tensor   # [N] int32, 0..3 for P2..P5 (0 on one level)
     y_idx: torch.Tensor   # [N, S, 2] int32 (low, high) rows
     y_w: torch.Tensor     # [N, S, 2] f32 weights, 0 where out of range
     x_idx: torch.Tensor   # [N, S, 2] int32 (low, high) columns
@@ -66,15 +70,29 @@ def _bilinear_params(coord: torch.Tensor, size: torch.Tensor):
 
 
 def roi_geometry(boxes: torch.Tensor, level_shapes: Sequence[Sequence[int]],
-                 output_size: int = 7, sampling_ratio: int = 2) -> RoIGeometry:
+                 output_size: int = 7, sampling_ratio: int = 2,
+                 spatial_scale: Optional[float] = None) -> RoIGeometry:
     """Level and per-axis sample table for [N, 4] boxes on levels of
-    spatial sizes ``level_shapes`` [(H_l, W_l)] x 4."""
+    spatial sizes ``level_shapes``: [(H_l, W_l)] x 4 for P2..P5, or one
+    level with its ``spatial_scale``, where every roi is on level 0 (JAX
+    ``roi_align_single_level``: no level mapping)."""
     device = boxes.device
     boxes = boxes.float()
     s, g = output_size, sampling_ratio
-    level = assign_levels(boxes)
+    if len(level_shapes) == 1:
+        if spatial_scale is None:
+            raise ValueError("one level needs its spatial_scale")
+        level = torch.zeros(boxes.shape[0], dtype=torch.int32, device=device)
+        scale = torch.full((boxes.shape[0],), spatial_scale,
+                           dtype=torch.float32, device=device)
+    elif len(level_shapes) == 4 and spatial_scale is None:
+        level = assign_levels(boxes)
+        scale = torch.tensor(LEVEL_SCALES, device=device)[level.long()]
+    else:
+        raise ValueError(f"expected 4 FPN levels, or one level with its "
+                         f"scale; got {len(level_shapes)} levels and scale "
+                         f"{spatial_scale}")
     lvl = level.long()
-    scale = torch.tensor(LEVEL_SCALES, device=device)[lvl]
     sizes = torch.tensor([list(hw) for hw in level_shapes], device=device,
                          dtype=torch.int32)
     Hl = sizes[lvl, 0]
@@ -95,17 +113,31 @@ def roi_geometry(boxes: torch.Tensor, level_shapes: Sequence[Sequence[int]],
     return RoIGeometry(level, y_idx, y_w, x_idx, x_w)
 
 
+def single_level_chunk(channels: int, rois: int, output_size: int = 7,
+                       sampling_ratio: int = 2) -> int:
+    """Rois a chunk of the plain single-level version, as JAX chunks them
+    (``roi_align_single_level`` :270-275): ~64 MB of float32 corner
+    samples, so 1280 channels and 1000 rois stay within memory."""
+    per_roi = (output_size * sampling_ratio) ** 2 * 16 * channels
+    return max(8, min(rois, int(64e6 / per_roi)))
+
+
 def roi_align_from_geometry(features: Sequence[torch.Tensor],
                             geom: RoIGeometry, rois_per_image: int,
                             output_size: int = 7,
-                            chunk: int = 512) -> torch.Tensor:
-    """Plain gather-form RoIAlign: ``features`` 4 levels NHWC [B, H_l, W_l,
-    C], rois n of image n // rois_per_image -> [N, s, s, C] in the
-    features' dtype, summed in float32."""
+                            chunk: Optional[int] = None) -> torch.Tensor:
+    """Plain gather-form RoIAlign: ``features`` the geometry's levels NHWC
+    [B, H_l, W_l, C] (4, or 1), rois n of image n // rois_per_image ->
+    [N, s, s, C] in the features' dtype, summed in float32. Rois go in
+    chunks of ``chunk``: 512 over 4 levels, ``single_level_chunk`` over
+    one."""
     C = features[0].shape[-1]
     s = output_size
     N = geom.level.shape[0]
     g = geom.y_idx.shape[1] // s
+    if chunk is None:
+        chunk = (single_level_chunk(C, N, s, g) if len(features) == 1
+                 else 512)
     flat = torch.cat([f.reshape(-1, C) for f in features])
     sizes = [(f.shape[0], f.shape[1], f.shape[2]) for f in features]
 
@@ -149,14 +181,18 @@ def _corner_rows(geom: RoIGeometry, lo: int, hi: int, rois_per_image: int,
 def roi_align_backward_from_geometry(dout: torch.Tensor, geom: RoIGeometry,
                                      rois_per_image: int,
                                      level_shapes: Sequence[Sequence[int]],
-                                     chunk: int = 256):
+                                     chunk: Optional[int] = None):
     """Plain transpose of ``roi_align_from_geometry``: the cotangent
-    ``dout`` [N, s, s, C] (any float dtype) -> 4 float32 level gradients
-    [B, H_l, W_l, C]. Each bin's cotangent goes to the 4 corners of each of
-    its g x g samples with weight ``y_w * x_w / g**2``, accumulated with
-    ``index_add_`` in float32."""
+    ``dout`` [N, s, s, C] (any float dtype) -> one float32 gradient
+    [B, H_l, W_l, C] per level of ``level_shapes``. Each bin's cotangent
+    goes to the 4 corners of each of its g x g samples with weight
+    ``y_w * x_w / g**2``, accumulated with ``index_add_`` in float32. Rois
+    go in chunks of 256 over 4 levels, ``single_level_chunk`` over one."""
     N, s, _, C = dout.shape
     g = geom.y_idx.shape[1] // s
+    if chunk is None:
+        chunk = (single_level_chunk(C, N, s, g) if len(level_shapes) == 1
+                 else 256)
     B = N // rois_per_image
     sizes = [(B, int(h), int(w)) for h, w in level_shapes]
     flat = torch.zeros(sum(b * h * w for b, h, w in sizes), C,
@@ -196,3 +232,15 @@ def multiscale_roi_align(features: Sequence[torch.Tensor],
                         output_size, sampling_ratio)
     out = roi_align_from_geometry(features, geom, R, output_size)
     return out.reshape(B, R, output_size, output_size, -1)
+
+
+def roi_align_single_level(feature: torch.Tensor, boxes: torch.Tensor,
+                           spatial_scale: float, output_size: int = 7,
+                           sampling_ratio: int = 2) -> torch.Tensor:
+    """Plain single-level RoIAlign, JAX ``roi_align_single_level``'s
+    signature: ``feature`` [H, W, C], ``boxes`` [R, 4] xyxy in input
+    coordinates, pooled at ``spatial_scale`` -> [R, s, s, C]."""
+    geom = roi_geometry(boxes, [feature.shape[:2]], output_size,
+                        sampling_ratio, spatial_scale)
+    return roi_align_from_geometry([feature[None]], geom, boxes.shape[0],
+                                   output_size)

@@ -1,8 +1,9 @@
 """Wrappers of the CUDA RoIAlign kernels (``csrc/roi_align_fwd.cu``,
 ``csrc/roi_align_bwd.cu``) and the autograd Function over them.
 
-``multiscale_roi_align_cuda`` is differentiable in the features: its
-forward computes the shared sample geometry in torch
+``multiscale_roi_align_cuda`` (P2..P5) and ``roi_align_single_level_cuda``
+(a single-map detector's one level) are differentiable in the features:
+the forward computes the shared sample geometry in torch
 (``ops/roi_align.py::roi_geometry``) once, launches ``roi_align_fwd`` and
 keeps the geometry table for the backward, which launches
 ``roi_align_bwd`` on the same table (a second ``log2`` could move a roi
@@ -10,6 +11,11 @@ across a level boundary). Boxes get no gradient, as in torchvision; the
 JAX VJP gives them zeros. For tensors on the CPU the wrappers run the plain
 torch versions; for CUDA tensors they launch the kernel or raise, never
 fall back.
+
+The kernels take four level slots and read, for each roi, only the slot
+of its ``level`` entry. One level goes in slot 0 and is repeated in the
+other three; its geometry puts every roi on level 0, so the kernels run
+unchanged on it.
 
 ``roi_align_fwd.launches`` and ``roi_align_bwd.launches`` count kernel
 launches, so a run can show that its main path went through the kernels.
@@ -50,9 +56,16 @@ def _kernel(name: str):
     return fn
 
 
+def _slots(levels: Sequence) -> list:
+    """The kernels' four level slots: 4 levels, or one level repeated."""
+    if len(levels) not in (1, 4):
+        raise ValueError(f"expected 4 FPN levels or one level, got "
+                         f"{len(levels)}")
+    return list(levels) * (4 // len(levels))
+
+
 def _check(features: Sequence[torch.Tensor], boxes: torch.Tensor) -> None:
-    if len(features) != 4:
-        raise ValueError(f"expected 4 FPN levels, got {len(features)}")
+    _slots(features)
     f0 = features[0]
     if f0.dtype not in _DTYPES:
         raise TypeError(f"features must be float32 or bfloat16, got {f0.dtype}")
@@ -91,11 +104,12 @@ def roi_align_fwd(features: Sequence[torch.Tensor], geom: RoIGeometry,
                   rois_per_image: int) -> torch.Tensor:
     """The kernel alone: pool N rois [N, 7, 7, C] from ``geom``, which must
     come from ``roi_geometry`` on these levels' shapes (it clamps every
-    index into its level). For tensors on the CPU, the plain
-    ``roi_align_from_geometry``."""
+    index into its level, and puts every roi on level 0 of one level).
+    For tensors on the CPU, the plain ``roi_align_from_geometry``."""
     if geom.level.device.type == "cpu":
         return roi_align_from_geometry(features, geom, rois_per_image,
                                        OUTPUT_SIZE)
+    features = _slots(features)
     N, C = geom.level.shape[0], features[0].shape[-1]
     geom = _check_geometry(geom, N, features[0].device)
     if N != features[0].shape[0] * rois_per_image:
@@ -126,10 +140,11 @@ def roi_align_bwd(dout: torch.Tensor, geom: RoIGeometry, rois_per_image: int,
                   level_shapes: Sequence[Sequence[int]],
                   out_dtype: torch.dtype = torch.float32):
     """The backward kernel alone: the cotangent ``dout`` [N, 7, 7, C]
-    (float32 or bfloat16) of ``roi_align_fwd`` on ``geom`` -> 4 level
-    gradients [B, H_l, W_l, C], accumulated in float32 and returned in
-    ``out_dtype`` (one cast of the float32 sums). For tensors on the CPU,
-    the plain ``roi_align_backward_from_geometry``."""
+    (float32 or bfloat16) of ``roi_align_fwd`` on ``geom`` -> one gradient
+    [B, H_l, W_l, C] per level of ``level_shapes`` (4, or 1),
+    accumulated in float32 and returned in ``out_dtype`` (one cast of the
+    float32 sums). For tensors on the CPU, the plain
+    ``roi_align_backward_from_geometry``."""
     if dout.device.type == "cpu":
         grads = roi_align_backward_from_geometry(dout, geom, rois_per_image,
                                                  level_shapes)
@@ -146,22 +161,23 @@ def roi_align_bwd(dout: torch.Tensor, geom: RoIGeometry, rois_per_image: int,
                          f"{_DTYPES[dout.dtype][1]}")
     if not dout.is_contiguous() or dout.data_ptr() % 16:
         raise ValueError("cotangent must be contiguous and 16-byte aligned")
-    if len(level_shapes) != 4 or N % rois_per_image:
-        raise ValueError(f"expected 4 levels and a whole number of images "
-                         f"of {rois_per_image} rois, got {len(level_shapes)} "
-                         f"levels and {N} rois")
+    if len(level_shapes) not in (1, 4) or N % rois_per_image:
+        raise ValueError(f"expected 4 levels or one, and a whole number of "
+                         f"images of {rois_per_image} rois, got "
+                         f"{len(level_shapes)} levels and {N} rois")
     geom = _check_geometry(geom, N, dout.device)
     B = N // rois_per_image
     sizes = [B * int(h) * int(w) * C for h, w in level_shapes]
-    # One zero-filled float32 buffer holds the 4 levels (one memset).
+    # One zero-filled float32 buffer holds the levels (one memset).
     flat = torch.zeros(sum(sizes), dtype=torch.float32, device=dout.device)
     grads = [g.view(B, int(h), int(w), C) for g, (h, w) in zip(
         torch.split(flat, sizes), level_shapes)]
-    dims = [int(d) for hw in level_shapes for d in hw]
+    dims = [int(d) for hw in _slots(level_shapes) for d in hw]
     with torch.cuda.device(dout.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel("roi_align_bwd")(
-            _DTYPES[dout.dtype][0], *(g.data_ptr() for g in grads), *dims,
+            _DTYPES[dout.dtype][0], *(g.data_ptr() for g in _slots(grads)),
+            *dims,
             geom.level.data_ptr(), geom.y_idx.data_ptr(),
             geom.y_w.data_ptr(), geom.x_idx.data_ptr(), geom.x_w.data_ptr(),
             dout.data_ptr(), N, rois_per_image, C, stream)
@@ -178,15 +194,16 @@ def roi_align_bwd(dout: torch.Tensor, geom: RoIGeometry, rois_per_image: int,
 roi_align_bwd.launches = 0
 
 
-class _MultiscaleRoIAlign(torch.autograd.Function):
-    """FPN RoIAlign, differentiable in the 4 levels (not in the boxes)."""
+class _RoIAlign(torch.autograd.Function):
+    """RoIAlign over P2..P5 (``spatial_scale`` None) or over one level at
+    ``spatial_scale``, differentiable in the levels (not in the boxes)."""
 
     @staticmethod
-    def forward(ctx, boxes, *features):
+    def forward(ctx, boxes, spatial_scale, *features):
         B, R = boxes.shape[:2]
         shapes = [tuple(f.shape[1:3]) for f in features]
         geom = roi_geometry(boxes.reshape(B * R, 4), shapes, OUTPUT_SIZE,
-                            SAMPLING_RATIO)
+                            SAMPLING_RATIO, spatial_scale)
         out = roi_align_fwd(features, geom, R)
         ctx.save_for_backward(*geom)
         ctx.level_shapes = shapes
@@ -200,7 +217,16 @@ class _MultiscaleRoIAlign(torch.autograd.Function):
             dout.reshape(B * R, OUTPUT_SIZE, OUTPUT_SIZE, -1).contiguous(),
             RoIGeometry(*ctx.saved_tensors), R, ctx.level_shapes,
             ctx.feature_dtype)
-        return (None, *grads)
+        return (None, None, *grads)
+
+
+def _apply(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+           spatial_scale) -> torch.Tensor:
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {boxes.device}")
+    if boxes.device.type == "cuda":
+        _check(features, boxes)
+    return _RoIAlign.apply(boxes.detach(), spatial_scale, *features)
 
 
 def multiscale_roi_align_cuda(features: Sequence[torch.Tensor],
@@ -210,8 +236,16 @@ def multiscale_roi_align_cuda(features: Sequence[torch.Tensor],
     ``boxes`` [B, R, 4] -> [B, R, 7, 7, C] in the features' dtype.
     Geometry in torch, then the kernels (``roi_align_fwd``, and
     ``roi_align_bwd`` for the features' gradient)."""
-    if boxes.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {boxes.device}")
-    if boxes.device.type == "cuda":
-        _check(features, boxes)
-    return _MultiscaleRoIAlign.apply(boxes.detach(), *features)
+    if len(features) != 4:
+        raise ValueError(f"expected 4 FPN levels, got {len(features)}")
+    return _apply(features, boxes, None)
+
+
+def roi_align_single_level_cuda(feature: torch.Tensor, boxes: torch.Tensor,
+                                spatial_scale: float) -> torch.Tensor:
+    """Single-level RoIAlign (7x7 bins, 2x2 samples), JAX
+    ``roi_align_single_level`` batched: ``feature`` NHWC [B, H, W, C]
+    (float32 or bfloat16), ``boxes`` [B, R, 4] pooled at ``spatial_scale``
+    -> [B, R, 7, 7, C] in the feature's dtype, through the same kernels
+    as ``multiscale_roi_align_cuda``."""
+    return _apply([feature], boxes, float(spatial_scale))

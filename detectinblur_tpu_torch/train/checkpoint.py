@@ -5,7 +5,10 @@ reference's scheme (train.py:332-339): per-epoch ``model_{epoch}.pt``
 holding ``{model, optimizer, step, epoch}`` plus ``args_{epoch}.json``,
 written by process 0 only; ``--resume`` restores all of it,
 ``--start_from_weights`` the weights only, from a full checkpoint or a
-bare state dict.
+bare state dict. The model's state dict carries its BatchNorm running
+statistics (a MobileNetV2 torso's, or a ``bn_mode`` backbone's), so they
+come back bit for bit with the weights; JAX keeps them in a ``bn_stats``
+subtree beside them (:32).
 
 Loading is strict. A missing or unexpected key, a wrong shape, a
 momentum buffer that does not fit its parameter, or a file without the

@@ -62,7 +62,9 @@ def _freeze_mask(model: nn.Module, trainable_backbone_layers: int = 3
     frozen; layer2..4, the FPN and the heads train. The BatchNorm affines
     of the body stay frozen in every stage, as JAX's mask keeps them
     (:70): they are parameters of an ``AdaptiveBatchNorm`` (the
-    FrozenBatchNorm keeps them as buffers)."""
+    FrozenBatchNorm keeps them as buffers). As JAX's, the mask looks only
+    under ``backbone.body``: a single-map detector's torso
+    (``backbone.*``) trains whole, its BatchNorm affines included."""
     frozen = ["conv1", "bn1"] if trainable_backbone_layers < 5 else []
     frozen += [f"layer{i}" for i in range(1, 5 - trainable_backbone_layers)]
     mask = {}

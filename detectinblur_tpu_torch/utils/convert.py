@@ -24,6 +24,12 @@ are named after that tree, so each leaf maps by its path:
     ``mean`` / ``var`` / ``num_batches_tracked`` leaf to the
     ``running_mean`` / ``running_var`` / ``num_batches_tracked`` buffer.
 
+The single-map detectors (``models/backbones.py``) take a torchvision
+ImageNet classifier's torso through ``torso_from_torchvision``
+(mobilenet_v2 with its running statistics, or a resnet trunk), and a JAX
+``SingleMapFasterRCNN`` tree through ``params_from_jax(...,
+backbone=...)``.
+
 The same two routes serve the blur estimator (``ResNetClassifier``):
 ``classifier_from_torchvision`` takes a torchvision resnet18 with its
 BatchNorm unfolded and, as the reference replaces ``fc`` by a fresh head,
@@ -117,15 +123,38 @@ _STAT_NAMES = {"mean": "running_mean", "var": "running_var",
                "num_batches_tracked": "num_batches_tracked"}
 
 
+def single_map_shapes(backbone: str, num_classes: int = 91,
+                      with_bn_stats: bool = False) -> Dict[str, torch.Size]:
+    """Key -> shape of the port's ``SingleMapFasterRCNN`` state dict for
+    ``backbone``; a resnet torso with ``with_bn_stats`` has
+    ``AdaptiveBatchNorm``s (built on ``meta``)."""
+    from detectinblur_tpu_torch.models.backbones import (
+        SingleMapConfig,
+        SingleMapFasterRCNN,
+    )
+
+    return _meta_shapes(SingleMapFasterRCNN(SingleMapConfig(
+        backbone, num_classes=num_classes, precision="highest",
+        bn_mode="eval" if with_bn_stats and backbone != "mobile_net"
+        else None), device="meta"))
+
+
 def params_from_jax(tree: Mapping, num_classes: int = 91,
-                    batch_stats: Optional[Mapping] = None
+                    batch_stats: Optional[Mapping] = None,
+                    backbone: Optional[str] = None
                     ) -> Dict[str, torch.Tensor]:
-    """JAX param tree (numpy leaves), and for a ``bn_mode`` model its
-    ``batch_stats`` tree, -> float32 state dict for the port's
-    ``FasterRCNN``. Raises ``KeyError`` on missing or extra keys and
-    ``ValueError`` on a shape mismatch."""
-    return _checked(_from_jax(tree, batch_stats), num_classes,
-                    batch_stats is not None)
+    """JAX param tree (numpy leaves), and for a model with BatchNorm
+    statistics its ``batch_stats`` tree, -> float32 state dict for the
+    port's ``FasterRCNN``, or with ``backbone`` for its
+    ``SingleMapFasterRCNN`` of that torso (JAX ``SingleMapFasterRCNN.init``
+    and ``init_stats``; a mobile_net tree always has statistics). Raises
+    ``KeyError`` on missing or extra keys and ``ValueError`` on a shape
+    mismatch."""
+    sd = _from_jax(tree, batch_stats)
+    if backbone is not None:
+        return _check_shapes(sd, single_map_shapes(
+            backbone, num_classes, batch_stats is not None))
+    return _checked(sd, num_classes, batch_stats is not None)
 
 
 def _from_jax(tree: Mapping, batch_stats: Optional[Mapping]
@@ -234,12 +263,12 @@ class _Mapper:
         gamma, beta, mean, var = (self.get(f"{prefix}.{k}") for k in (
             "weight", "bias", "running_mean", "running_var"))
         out = self.out
+        if f"{prefix}.num_batches_tracked" in self.src:
+            self.used.add(f"{prefix}.num_batches_tracked")
         if not self.frozen_bn:
             out[f"{dst}.scale"], out[f"{dst}.bias"] = gamma, beta
             out[f"{dst}.running_mean"], out[f"{dst}.running_var"] = mean, var
             out[f"{dst}.num_batches_tracked"] = np.float32(self.num_batches)
-            if f"{prefix}.num_batches_tracked" in self.src:
-                self.used.add(f"{prefix}.num_batches_tracked")
             return
         scale = gamma / np.sqrt(var + 0.0)
         out[f"{dst}.scale"] = scale
@@ -271,6 +300,53 @@ class _Mapper:
             raise KeyError(f"state dict keys left unused: {unused[:5]}")
         return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
                 for k, v in self.out.items()}
+
+
+def torso_from_torchvision(sd: Mapping, backbone: str,
+                           frozen_bn: bool = True, num_batches: float = 0.0
+                           ) -> Dict[str, torch.Tensor]:
+    """A torchvision ImageNet classifier's state dict -> the ``backbone.*``
+    state dict of the port's ``SingleMapFasterRCNN`` torso (its heads stay
+    the caller's): JAX ``convert_mobilenet_v2_features`` (:196) and
+    ``convert_resnet_trunk_state_dict`` (:243).
+
+    ``mobile_net``: ``features.0`` the stem, ``features.1..17`` the
+    inverted residuals (block 1 without the expand conv), ``features.18``
+    the head; BatchNorms unfolded with their running statistics and
+    ``num_batches`` in every count; the ``classifier`` is skipped. A
+    resnet (``resnet50``, ...): the trunk, ``fc`` skipped, BatchNorm
+    folded into FrozenBatchNorm's affine (eps 0), or unfolded with
+    ``frozen_bn=False`` for a ``bn_mode`` torso. Strict otherwise: a
+    missing, unused or misshapen key raises."""
+    if backbone == "mobile_net":
+        m = _Mapper(sd, num_batches=num_batches, ignore=("classifier.",))
+
+        def conv_bn(dst, conv, bn):
+            m.copy(f"backbone.{dst}_conv.weight", f"{conv}.weight")
+            m.fold(f"backbone.{dst}_bn", bn)
+
+        conv_bn("stem", "features.0.0", "features.0.1")
+        for i in range(1, 18):
+            p, q = f"block{i}", f"features.{i}.conv"
+            if f"{q}.1.0.weight" in m.src:      # expand, depthwise, project
+                conv_bn(f"{p}.expand", f"{q}.0.0", f"{q}.0.1")
+                conv_bn(f"{p}.depthwise", f"{q}.1.0", f"{q}.1.1")
+                conv_bn(f"{p}.project", f"{q}.2", f"{q}.3")
+            else:                               # block 1: depthwise, project
+                conv_bn(f"{p}.depthwise", f"{q}.0.0", f"{q}.0.1")
+                conv_bn(f"{p}.project", f"{q}.1", f"{q}.2")
+        conv_bn("head", "features.18.0", "features.18.1")
+        with_stats = True
+    elif backbone.startswith("res"):
+        m = _Mapper(sd, frozen_bn, num_batches, ignore=("fc.",))
+        m.trunk("backbone", "", backbone)
+        with_stats = not frozen_bn
+    else:
+        raise ValueError(f"no torchvision torso converter for {backbone!r}")
+    want = {k: v for k, v in single_map_shapes(backbone,
+                                               with_bn_stats=with_stats).items()
+            if k.startswith("backbone.")}
+    return _check_shapes(m.result(), want)
 
 
 def classifier_from_torchvision(sd: Mapping, arch: str = "resnet18",

@@ -478,16 +478,16 @@ REFUSED += [["--deblurer_model_location", "d.pth"],
             ["--ensemble_model_paths", "a", "b", "c", "d"],
             ["--blur_estimator_path", "e"], ["--image_output_dir", "o"],
             ["--blurred_dataset", "GOPRO"], ["--dataset", "coco_kp"],
-            ["--model", "mobile_net"], ["--world-size", "2"]]
+            ["--world-size", "2"]]
 
 
 @pytest.mark.parametrize("flag", REFUSED, ids=lambda f: f[0])
 def test_unported_flag_raises(flag, tmp_path):
     """Each flag the port does not have yet raises NotImplementedError
     naming it, in both CLIs, before any work starts. The flags of
-    deblur-first and of the ensemble (``EVAL_ONLY``) are ported in
-    ``cli.evaluate``; ``cli.train``, which never reads them, still
-    raises."""
+    deblur-first, of the ensemble and of the natural-blur datasets
+    (``EVAL_ONLY``) are ported in ``cli.evaluate``; ``cli.train``, which
+    never reads them, still raises."""
     name = flag[0]
     for mod in (cli_eval, cli_train):
         if name in ("--dilate_psf", "--mode_one_norm") and mod is cli_train:
@@ -496,6 +496,30 @@ def test_unported_flag_raises(flag, tmp_path):
             continue    # ported in cli.evaluate
         with pytest.raises(NotImplementedError, match=name):
             mod.main(["--data-path", str(tmp_path), "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("model,torso,has_bn", [
+    ("mobile_net", "mobile_net", True), ("resnet_50", "resnet50", False)])
+def test_model_flag_builds_the_single_map_detector(model, torso, has_bn):
+    """``--model mobile_net|resnet_50`` passes both CLIs' flag check and
+    builds JAX's single-map detector (train.py:218-230 of the reference):
+    the torso, 91 classes, min 300 / max 500; MobileNetV2's BatchNorms on
+    running statistics, the resnet's FrozenBatchNorm (``has_bn`` False)
+    unless a BatchNorm flag asks for a mode."""
+    from detectinblur_tpu_torch.cli.args import eval_parser, refuse_unported
+    from detectinblur_tpu_torch.models.backbones import SingleMapFasterRCNN
+
+    for parser in (cli_train.train_parser(), eval_parser()):
+        refuse_unported(parser, parser.parse_args(["--model", model]),
+                        not_read=EVAL_ONLY)
+    args = cli_train.train_parser().parse_args(["--model", model])
+    m = cli_train.build_model(args, "meta")
+    assert isinstance(m, SingleMapFasterRCNN)
+    assert (m.cfg.backbone, m.cfg.num_classes, m.cfg.min_size,
+            m.cfg.max_size, m.has_bn) == (torso, 91, 300, 500, has_bn)
+    args = cli_train.train_parser().parse_args(["--model", model,
+                                                "--unfrozen_batch_norm"])
+    assert cli_train.build_model(args, "meta").has_bn
 
 
 REFERENCE_FAULTS = {
@@ -515,6 +539,10 @@ REFERENCE_FAULTS = {
                               "a", "b", "c"], "four"),
     "ensemble-flags-alone": (["--LEHE", "--blur_estimator_path", "e"],
                              "need --use_ensemble"),
+    # JAX ignores the flag on every other set.
+    "synth-boxes-without-goprosynth": (
+        ["--blurred_dataset", "GOPRO", "--expand_synth_boxes"],
+        "expand_synth_boxes"),
 }
 
 

@@ -17,6 +17,7 @@ from detectinblur_tpu_torch.ops import roi_align_cuda
 from detectinblur_tpu_torch.ops.roi_align import (
     multiscale_roi_align,
     roi_align_backward_from_geometry,
+    roi_align_from_geometry,
     roi_geometry,
 )
 
@@ -413,3 +414,49 @@ def test_estimator_train_step_card_vs_cpu(cuda):
     for k in sp:
         assert (sc[k] - sp[k]).abs().max() <= 1e-4 * max(
             sp[k].abs().max().item(), 1), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [1280, 2048])
+def test_single_level_kernels_match_plain(rng, cuda, dtype, channels):
+    """The single-map detectors' pooling: both kernels on one stride-32
+    map of MobileNetV2's 1280 or the ResNet-50 C5's 2048 channels (a
+    26x34 map, the 832x1088 bucket's), every roi on level 0 at 1/32,
+    against the plain versions on the same geometry. Forward as
+    ``test_roi_align_kernel_matches_plain`` holds it; backward within 1e-5
+    of the largest gradient, as ``test_roi_align_bwd_kernel_matches_plain``."""
+    dt = getattr(torch, dtype)
+    B, R, shape = 2, 200, (26, 34)
+    feat = torch.from_numpy(rng.standard_normal(
+        (B, *shape, channels), dtype=np.float32)).to(cuda, dt)
+    boxes = np.zeros((B, R, 4), np.float32)
+    boxes[..., :2] = rng.uniform(-40, 1000, (B, R, 2))
+    boxes[..., 2:] = boxes[..., :2] + rng.uniform(0.5, 600, (B, R, 2))
+    boxes[:, :len(EDGE_ROIS)] = EDGE_ROIS
+    boxes = torch.from_numpy(boxes).to(cuda)
+    geom = roi_geometry(boxes.reshape(-1, 4), [shape], spatial_scale=1 / 32)
+    assert int(geom.level.abs().sum()) == 0
+    f = feat.clone().requires_grad_(True)
+    before = (roi_align_cuda.roi_align_fwd.launches,
+              roi_align_cuda.roi_align_bwd.launches)
+    out = roi_align_cuda.roi_align_single_level_cuda(f, boxes, 1 / 32)
+    dout = _dout(rng, B, R, channels, cuda, dt)
+    out.backward(dout.reshape(out.shape))
+    torch.cuda.synchronize()
+    assert (roi_align_cuda.roi_align_fwd.launches,
+            roi_align_cuda.roi_align_bwd.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    ref = roi_align_from_geometry([feat], geom, R).float()
+    err = (out.detach().reshape(ref.shape).float() - ref).abs()
+    scale = ref.abs().max().item()
+    if dt == torch.float32:
+        assert err.max().item() <= 1e-5 * scale
+    else:
+        got = out.detach().reshape(ref.shape).float()
+        bound = 2 ** -7 * torch.maximum(got.abs(), ref.abs()) + 1e-5 * scale
+        assert bool((err <= bound).all())
+    gref, = roi_align_backward_from_geometry(dout, geom, R, [shape])
+    grad = roi_align_cuda.roi_align_bwd(dout, geom, R, [shape])[0]
+    assert (grad - gref).abs().max().item() <= 1e-5 * gref.abs().max().item()
+    assert f.grad.dtype == dt and f.grad.shape == feat.shape

@@ -91,8 +91,9 @@ def test_estimator_cli_trains_and_checkpoints(coco_root, tiny, tmp_path):
 
 
 ESTIMATOR_REFUSALS = {
-    "natural-dataset": (["--dataset", "GOPROBlurEst", "--LEHE_blur_seg"],
-                        NotImplementedError, "GOPROBlurEst"),
+    # Its stored labels are LEHE classes, as JAX refuses it.
+    "natural-dataset": (["--dataset", "GOPROBlurEst"], ValueError,
+                        "LEHE_blur_seg"),
     "flag-not-read": (["--warp_in_model"], NotImplementedError,
                       "warp_in_model"),
     "missing-pretrained": (["--pretrained"], FileNotFoundError,
@@ -102,10 +103,10 @@ ESTIMATOR_REFUSALS = {
 
 @pytest.mark.parametrize("case", sorted(ESTIMATOR_REFUSALS))
 def test_estimator_cli_refusals(case, coco_root, tiny, tmp_path):
-    """``--dataset GOPROBlurEst`` (natural datasets are not ported yet)
-    and a common flag the estimator never reads raise
-    NotImplementedError; a missing ``--pretrained`` file raises where JAX
-    trains from scratch."""
+    """``--dataset GOPROBlurEst`` without ``--LEHE_blur_seg`` raises
+    ValueError, as JAX exits; a common flag the estimator never reads
+    raises NotImplementedError; a missing ``--pretrained`` file raises
+    where JAX trains from scratch."""
     flags, exc, name = ESTIMATOR_REFUSALS[case]
     with pytest.raises(exc, match=name):
         cli_est.main(["--data-path", coco_root, "--device", "cpu",
