@@ -857,13 +857,15 @@ def check_train_against_cpu():
         sys.exit("the card's loss or gradients disagree with the CPU's")
 
 
-def _write_coco(root):
-    """The synthetic COCO directory of phase 8 (``tests/synthetic_coco``)."""
+def _write_coco(root, n_cats=90, box_frac=(0.05, 0.6)):
+    """The synthetic COCO directory of phase 8 (``tests/synthetic_coco``);
+    phase 11 asks for few categories and large boxes, which random heads
+    score."""
     from synthetic_coco import COCO_SIZES, write_coco
 
     sizes = lambda n: [COCO_SIZES[i % len(COCO_SIZES)] for i in range(n)]
     return write_coco(root, {"train2017": sizes(8), "val2017": sizes(16)},
-                      seed=0, n_cats=90, boxes=(2, 6))
+                      seed=0, n_cats=n_cats, boxes=(2, 6), box_frac=box_frac)
 
 
 def _counted(fn):
@@ -2065,9 +2067,11 @@ def run_single_map_serving(torso, gen):
     """Phase 11a: blur + ``predict`` of B=8 480x640 images in the CLIs'
     bucket (832x1088; the model resizes to 300x400 inside it) at full
     width, ``default`` precision, the torso from a random torchvision
-    classifier (``_single_map``), the class scores x4 so that random
-    heads score boxes. The counted run must launch the forward
-    kernel; the kernel is held against its plain version on the rois and
+    classifier (``_single_map``), the class scores x4 (doubled up to x64
+    until every image has a box above 0.05: blurred noise gives the
+    resnet50 torso flat features), so that random heads score
+    boxes. The counted run must launch the forward kernel and score a box
+    on every image; the kernel is held against its plain version on the rois and
     the map the run handed it, in bfloat16 and float32, and timed there
     against its bytes bound. Returns (launches, timing, summary)."""
     from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
@@ -2080,8 +2084,6 @@ def run_single_map_serving(torso, gen):
     hw = np.tile(np.asarray([SRC_HW]), (B, 1))
     bucket = model_bucket_for_batch(hw)
     model = _single_map(torso, imagenet=True)
-    with torch.no_grad():   # random heads then score boxes above 0.05
-        model.box_predictor.cls_score.weight.mul_(4)
     rng = np.random.default_rng(0)
     images = torch.from_numpy(rng.random((B, *SRC_HW, 3), np.float32)).cuda()
     psfs = sample_psf(B, expl=0.005, fraction=0.5, generator=gen,
@@ -2092,19 +2094,28 @@ def run_single_map_serving(torso, gen):
         blurred = batched_blur(images.permute(0, 3, 1, 2), psfs, blurring)
         return model.predict(blurred.permute(0, 2, 3, 1), hw, bucket)
 
-    blur_detect()
+    scale = 1
+    for factor in (4, 2, 2, 2, 2):   # random heads score no box at first
+        scale *= factor
+        with torch.no_grad():
+            model.box_predictor.cls_score.weight.mul_(factor)
+        if blur_detect().valid.sum(1).min() > 0:
+            break
     fwd = {}
     with _capture_roi_align(fwd, {}):
         blur_detect()
     det, launches = _counted(blur_detect)
     launches = launches["roi_align_fwd"]
-    print(f"single-map {torso} serving: bucket {bucket}, roi_align_fwd "
-          f"launches {launches}")
+    print(f"single-map {torso} serving: bucket {bucket}, class scores x"
+          f"{scale}, roi_align_fwd launches {launches}")
     if launches == 0:
         sys.exit(f"single-map {torso} serving never launched roi_align_fwd")
     if det.boxes.shape != (B, 100, 4) or not (
             torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()):
         sys.exit(f"single-map {torso}: bad detections {det.boxes.shape}")
+    if det.valid.sum(1).min() == 0:
+        sys.exit(f"single-map {torso} serving scored no box on an image "
+                 f"with the class scores x{scale}: {det.valid.sum(1).tolist()}")
 
     torch.cuda.reset_peak_memory_stats()
     windows, iters = 5, 3
@@ -2126,8 +2137,8 @@ def run_single_map_serving(torso, gen):
                              boxes.shape[1],
                              f"single-map {torso} serving rois")
     summary = {"img_s": img_s, "window_img_s": rates, "peak_mem_gib": peak,
-               "map": list(feats[0].shape), "valid_detections":
-               det.valid.sum(1).tolist()}
+               "map": list(feats[0].shape), "class_score_scale": scale,
+               "valid_detections": det.valid.sum(1).tolist()}
     print(f"single-map {torso} serving " + json.dumps(summary))
     return launches, timing, summary
 
@@ -2240,10 +2251,13 @@ def check_single_map_against_cpu():
     port's CPU (plain versions): mobile_net's loss and gradients on 2
     images of 256x320 with the sampler draws injected and the RPN's
     prediction layers fixed (proposals at the anchors on both devices):
-    losses within 1e-4 relative; each gradient within 3x the card's own
-    spread under a 1e-6 nudge of the images (BatchNorm on batch
-    statistics is ill-conditioned at this size) or within 1e-3 of its
-    max, their median no larger than the nudge's (at least 2e-3). Then
+    losses within 1e-4 relative; each gradient within 0.25 of its max,
+    the heads' within 5e-2, the whole gradient within 2e-2 in L2 (the
+    limits of ``tests/test_torch_port_backbones.py``: BatchNorm on batch
+    statistics is ill-conditioned at every size, see
+    ``tests/gradient_conditioning.py``), and each within 3x the card's own
+    spread under a 1e-6 nudge of the images or within 1e-3 of its max,
+    their median no larger than the nudge's (at least 2e-3). Then
     resnet_50's predict on 2 small
     images (5 classes, predictor x4 so that random weights score): C5
     within 2e-3 of its max, 85% of the CPU's detections matched by label,
@@ -2297,15 +2311,21 @@ def check_single_map_against_cpu():
     loss_err = max(abs(card_l[k] - v) / abs(v) for k, v in cpu_l.items())
     bad = {k: (e, spread[k]) for k, e in err.items()
            if not e <= max(3 * spread[k], 1e-3)}
+    heads = max(e for k, e in err.items() if not k.startswith("backbone."))
+    l2 = (sum(float(((card_g[k] - cpu_g[k]).double() ** 2).sum())
+              for k in cpu_g)
+          / sum(float((cpu_g[k].double() ** 2).sum()) for k in cpu_g)) ** 0.5
     print(f"card vs CPU single-map mobile_net loss (2 x 256x320): losses "
           f"{cpu_l}, max relative loss error {loss_err:.3g}; gradient error "
           f"/ max |grad|: median {np.median(list(err.values())):.3g}, max "
-          f"{max(err.values()):.3g}; the card's own under a 1e-6 nudge: "
+          f"{max(err.values()):.3g}, the heads' max {heads:.3g}, L2 of the "
+          f"whole gradient {l2:.3g}; the card's own under a 1e-6 nudge: "
           f"median {np.median(list(spread.values())):.3g}, max "
           f"{max(spread.values()):.3g}; outside 3x the nudge and 1e-3: "
-          f"{len(bad)}")
-    if loss_err > 1e-4 or bad or np.median(list(err.values())) > max(
-            np.median(list(spread.values())), 2e-3):
+          f"{len(bad)}; tolerance 0.25 a tensor, 5e-2 the heads, 2e-2 L2")
+    if loss_err > 1e-4 or bad or max(err.values()) > 0.25 or heads > 5e-2 \
+            or l2 > 2e-2 or np.median(list(err.values())) > max(
+                np.median(list(spread.values())), 2e-3):
         sys.exit(f"the card's single-map loss or gradients disagree with "
                  f"the CPU's: {sorted(bad.items())[:3]}")
 
@@ -2331,19 +2351,31 @@ def check_single_map_against_cpu():
         sys.exit("the card's single-map predict disagrees with the CPU's")
 
 
+def _scoring_heads(model):
+    """Random heads that score phase 11d's COCO: the class scores x4 and
+    the logits of its 4 categories +3 (random heads put nearly all their
+    boxes on two or three classes of 90 otherwise)."""
+    with torch.no_grad():
+        model.box_predictor.cls_score.weight.mul_(4)
+        model.box_predictor.cls_score.bias[1:5] += 3
+    return model
+
+
 def run_single_map_entry_points():
     """Phase 11d, the entry points with the single-map detectors and the
-    natural-blur data. On phase 8's synthetic COCO: ``cli.train --model
+    natural-blur data. On a synthetic COCO of phase 8's writer with 4
+    categories and boxes of 10-60% of a side: ``cli.train --model
     mobile_net`` (batch 2, 3 steps, lr 1e-5, from a start checkpoint: the
     He-scaled MobileNetV2 torso of ``tests/torso_weights.py`` and the
-    port's random heads, the predictor x4 so that they score) must launch
+    port's random heads made to score, ``_scoring_heads``) must launch
     both kernels and write a ``model_0.pt`` that gives back weights,
     momentum, step and running statistics bit for bit; ``cli.evaluate
-    --model mobile_net`` on it (8 images) must give the CPU's 19 stats;
-    ``cli.evaluate --model resnet_50`` from a He-scaled resnet50 ``.pth``
-    (its torso, random heads, which may score no box; 4 images), and from
-    a start checkpoint made as mobile_net's. On a synthetic GOPRO sequence at
-    GOPRO's 720x1280 (13 frames with DORS dumps and flows,
+    --model mobile_net`` on it (4 images) must match a box (AP > 0) and
+    give the CPU's 19 stats; ``cli.evaluate --model resnet_50`` from a
+    start checkpoint made as mobile_net's must match a box, and from the
+    He-scaled resnet50 ``.pth`` it was made from (its torso; the random
+    heads made to score as in the checkpoint) give the same stats. On a
+    synthetic GOPRO sequence at GOPRO's 720x1280 (13 frames with DORS dumps and flows,
     ``tests/synthetic_gopro.py``): ``dataset_tools render-gopro-synth
     --window 2 --expand_boxes``, ``segment-gopro``, then ``cli.evaluate
     --blurred_dataset GOPROSynth --expand_synth_boxes`` (3 images) and
@@ -2381,7 +2413,7 @@ def run_single_map_entry_points():
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        root = _write_coco(str(tmp / "coco"))
+        root = _write_coco(str(tmp / "coco"), n_cats=4, box_frac=(0.1, 0.6))
         save(mobilenet_sd(), tmp / "mobilenet_v2.pth")
         save(resnet_sd("resnet50"), tmp / "resnet50.pth")
         parse = cli_train.train_parser().parse_args
@@ -2391,8 +2423,7 @@ def run_single_map_entry_points():
                 parse(["--model", flag, "--start_from_weights",
                        str(tmp / pth)]),
                 cli_train.build_model(parse(["--model", flag]), "cuda"))
-            with torch.no_grad():
-                start.box_predictor.cls_score.weight.mul_(4)
+            _scoring_heads(start)
             torch.save(start.state_dict(), tmp / f"{flag}_start.pt")
         del start
         gopro = write_gopro(str(tmp / "gopro"), [("train", 13)],
@@ -2459,28 +2490,46 @@ def run_single_map_entry_points():
             ("mobile_net GOPROSynthLoad", [
                 "--data-path", rendered, "--model", "mobile_net", "--resume",
                 ckpt, "--blurred_dataset", "GOPROSynthLoad"], 9))
+        build = cli_eval.build_model
+
+        def scoring_build(args, device):
+            # The torso .pth leaves the heads random: made to score as the
+            # start checkpoint's, so that the two resnet_50 evals agree.
+            return _scoring_heads(build(args, device))
+
+        results = {}
         for name, argv, images in evals:
             path = f"cli.evaluate {name}"
             fwd, n_loops = {}, len(loops)
+            cli_eval.build_model = (scoring_build if name.endswith(".pth")
+                                    else build)
             t0 = time.perf_counter()
             with _capture_roi_align(fwd, {}):
                 stats, n = _counted(lambda: cli_eval.main(argv))
+            cli_eval.build_model = build
             print(f"{path}: {time.perf_counter() - t0:.2f} s, launches {n}, "
                   f"images {loops[-1]['images']}, detections "
                   f"{loops[-1]['detections']}")
-            if name.endswith(".pth"):   # random heads: no box may score
-                print(f"{path}: 19 stats {np.round(stats, 4).tolist()}")
-                if stats.shape != (19,) or not np.isfinite(stats).all():
-                    sys.exit(f"{path}: stats are not 19 finite numbers")
-            else:
-                _check_stats(path, stats)
+            _check_stats(path, stats)
             if n["roi_align_fwd"] != images or loops[-1]["images"] != images:
                 sys.exit(f"{path}: roi_align_fwd launched "
                          f"{n['roi_align_fwd']} times for {images} images")
             check_captured(path, fwd, {})
             launches[path.replace(" ", "_").replace(".", "_")] = n
-            if name == "mobile_net clean":
-                card, card_dets = stats, loops[n_loops]["detections"]
+            results[name] = stats, loops[n_loops]["detections"]
+        for name in ("mobile_net clean", "resnet_50 clean"):
+            if not results[name][0][0] > 0:
+                sys.exit(f"cli.evaluate {name}: AP {results[name][0][0]}, "
+                         "no box matched: nothing to compare")
+        err = np.abs(np.asarray(results["resnet_50 clean, torso .pth"][0])
+                     - results["resnet_50 clean"][0])
+        print(f"cli.evaluate --model resnet_50 from the torso .pth against "
+              f"the start checkpoint of the same weights: max |stat "
+              f"difference| {err.max():.3g}, tolerance 1e-3")
+        if err.max() > 1e-3:
+            sys.exit("cli.evaluate --model resnet_50 loads the torso .pth "
+                     "into other weights than the start checkpoint")
+        card, card_dets = results["mobile_net clean"]
         t0 = time.perf_counter()
         cpu = cli_eval.main(evals[0][1] + ["--device", "cpu"])
         err = np.abs(np.asarray(card) - cpu)

@@ -15,10 +15,9 @@ train (``models/backbones.py``). With ``bn_mode`` set, the backbone's
 BatchNorms are ``models/batchnorm.AdaptiveBatchNorm`` in that mode
 instead (the JAX ``norm`` argument, :135,164,197,260).
 
-The trunks are the JAX arch table's (:180-189): ``resnet18``/``34``
-(``BasicBlock``; resnet18 is the blur estimator's) and
-``resnet50``/``101``/``152`` (``Bottleneck``; resnet50 is the FPN's and
-``--model resnet_50``'s).
+The trunk is the JAX arch table's ``resnet50`` (``Bottleneck``; the
+FPN's and ``--model resnet_50``'s) or ``resnet18`` (``BasicBlock``, the
+blur estimator's, :160,181).
 
 Parameters stay float32 in every precision; ``Conv2d`` and ``Linear`` cast
 their weights to the dtype they compute in on each call, as the JAX
@@ -170,14 +169,10 @@ def reset_trunk(module: nn.Module, generator: torch.Generator,
                     m.num_batches_tracked.zero_()
 
 
-# arch -> (block, blocks per stage), the JAX RESNET_SPECS rows but its
-# grouped resnext101_32x8d (no CLI choice builds it).
+# arch -> (block, blocks per stage), the JAX RESNET_SPECS rows ported.
 RESNET_SPECS = {
     "resnet18": (BasicBlock, (2, 2, 2, 2)),
-    "resnet34": (BasicBlock, (3, 4, 6, 3)),
     "resnet50": (Bottleneck, (3, 4, 6, 3)),
-    "resnet101": (Bottleneck, (3, 4, 23, 3)),
-    "resnet152": (Bottleneck, (3, 8, 36, 3)),
 }
 
 

@@ -40,16 +40,15 @@ class RPNHead(nn.Module):
     Emits float32, whatever the activation dtype: objectness feeds
     top-k/NMS ordering and the deltas feed box decode.
 
-    The 3x3 conv maps ``in_channels`` to ``width`` (256), as the JAX head
-    does whatever its input: the single-map detectors feed it 1280 or
-    2048 channels and 15 anchors a cell."""
+    The 3x3 conv maps ``in_channels`` to 256, as the JAX head does
+    whatever its input: the single-map detectors feed it 1280 or 2048
+    channels and 15 anchors a cell."""
 
-    def __init__(self, in_channels: int = 256, num_anchors: int = 3,
-                 width: int = 256):
+    def __init__(self, in_channels: int = 256, num_anchors: int = 3):
         super().__init__()
-        self.conv = Conv2d(in_channels, width, 3, padding=1)
-        self.cls_logits = Conv2d(width, num_anchors, 1)
-        self.bbox_pred = Conv2d(width, num_anchors * 4, 1)
+        self.conv = Conv2d(in_channels, 256, 3, padding=1)
+        self.cls_logits = Conv2d(256, num_anchors, 1)
+        self.bbox_pred = Conv2d(256, num_anchors * 4, 1)
 
     def forward(self, features: Sequence[torch.Tensor]):
         """features: levels NHWC [B, H, W, C] -> (logits [B, H*W*A],
@@ -271,23 +270,18 @@ def level_anchors(features: Sequence[torch.Tensor],
 
 def run_rpn(head: RPNHead, features: Sequence[torch.Tensor],
             image_hw: torch.Tensor, cfg: RPNConfig = RPNConfig(),
-            anchors=None, training: bool = False,
-            first_level_stride: int = 4,
-            anchor_sizes: Tuple[Tuple[float, ...], ...] = ANCHOR_SIZES,
-            anchor_ratios: Tuple[Tuple[float, ...], ...] = ASPECT_RATIOS
-            ) -> RPNOutputs:
+            anchors=None, training: bool = False) -> RPNOutputs:
     """Run the RPN over a batch of NHWC levels: P2..P6, or a single-map
-    detector's one level with its stride and anchor spec.
+    detector's one level.
 
     ``training`` selects the train top-k sizes. Proposals are decoded from
     detached deltas and objectness (the JAX version's ``stop_gradient``);
     ``objectness`` and ``pred_deltas`` keep their graph for the loss.
     ``anchors`` may pass a cached ``level_anchors`` result for these
-    features, stride and spec."""
+    features (a single-map detector passes its own stride and spec)."""
     logits, deltas = head(features)
     if anchors is None:
-        anchors = level_anchors(features, first_level_stride, anchor_sizes,
-                                anchor_ratios)
+        anchors = level_anchors(features)
     anchors, anchors_per_level = anchors
     objectness = torch.cat(logits, dim=1)                 # [B, sum_A]
     pred_deltas = torch.cat(deltas, dim=1)                # [B, sum_A, 4]

@@ -88,14 +88,17 @@ def test_torso_matches_jax(arch, mode):
     if arch == "mobile_net":
         sd = mobilenet_sd()
         params, stats = convert_mobilenet_v2_features(sd)
-        ref = jb.MobileNetV2Features(bn_mode=mode).apply(
-            {"params": params, "batch_stats": stats}, jnp.asarray(x),
-            mutable=["batch_stats"])[0]
+        jtorso = jb.MobileNetV2Features(bn_mode=mode)
+        ref = jax.jit(lambda p, s, x: jtorso.apply(
+            {"params": p, "batch_stats": s}, x, mutable=["batch_stats"])[0])(
+                params, stats, jnp.asarray(x))
         cfg = SingleMapConfig(arch, bn_mode=mode, precision="highest")
     else:
         sd = resnet_sd(arch)
         params, _ = convert_resnet_trunk_state_dict(sd, arch=arch)
-        ref = JaxResNet(arch).apply({"params": params}, jnp.asarray(x))[-1]
+        jtorso = JaxResNet(arch)
+        ref = jax.jit(lambda p, x: jtorso.apply({"params": p}, x)[-1])(
+            params, jnp.asarray(x))
         cfg = SingleMapConfig(arch, precision="highest")
     model = SingleMapFasterRCNN(cfg, device="cpu")
     model.load_state_dict({**model.state_dict(),
@@ -110,14 +113,15 @@ def test_vgg11_torso_matches_jax():
     """vgg11 (not a CLI choice; ``SingleMapConfig`` takes it), JAX's own
     initialisation carried over by ``params_from_jax``: the map within
     1e-5 of its largest magnitude."""
-    jmodel = jb.SingleMapFasterRCNN(jb.SingleMapConfig("vgg11"))
-    params = np_tree(jmodel.init(jax.random.key(0), bucket=(64, 96)))
     x = np.random.default_rng(2).random((1, 64, 96, 3), np.float32)
-    ref = jb.VGGFeatures("vgg11").apply({"params": params["backbone"]},
-                                        jnp.asarray(x))
+    jtorso = jb.VGGFeatures("vgg11")
+    params = np_tree(jtorso.init(jax.random.key(0), jnp.asarray(x))["params"])
+    ref = jax.jit(lambda p, x: jtorso.apply({"params": p}, x))(
+        params, jnp.asarray(x))
     model = SingleMapFasterRCNN(SingleMapConfig("vgg11", precision="highest"),
                                 device="cpu")
-    model.load_state_dict(params_from_jax(params, backbone="vgg11"))
+    model.load_state_dict(params_from_jax(
+        {"backbone": params, **_heads_tree(model)}, backbone="vgg11"))
     assert not model.has_bn
     with torch.no_grad():
         ours, = model.features(T(x))
@@ -165,13 +169,14 @@ def _pair(arch, zero_rpn=False):
     return jmodel, params, stats, model
 
 
-@pytest.mark.parametrize("arch", ["mobile_net", "resnet18"])
-def test_predict_matches_jax(arch):
-    """predict on 2 images (one 80x100 in the 96x128 bucket): 85% of
-    JAX's valid detections matched per image by label, IoU > 0.95 and
-    score within 2e-3 (``remedy_helpers.match``), and the running
-    statistics left as they were."""
-    jmodel, params, stats, model = _pair(arch)
+def test_predict_matches_jax():
+    """MobileNetV2's predict on 2 images (one 80x100 in the 96x128
+    bucket), the torso on running statistics: 85% of JAX's valid
+    detections matched per image by label, IoU > 0.95 and score within
+    2e-3 (``remedy_helpers.match``), and the running statistics left as
+    they were. The resnet torso's eval forward is held by
+    ``test_torso_matches_jax`` and the rest of its path by the loss."""
+    jmodel, params, stats, model = _pair("mobile_net")
     images = np.random.default_rng(3).random((2, *BUCKET, 3), np.float32)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     dets = model.predict(T(images), HW, BUCKET)
@@ -257,12 +262,18 @@ def test_loss_gradients_match_jax(loss_case):
     gradient: the BatchNorm betas ahead of a BatchNorm on batch statistics
     get gradients that are zero but for float noise). resnet18
     (FrozenBatchNorm affines training): within 1e-5 (measured 1.5e-6).
-    MobileNetV2 on batch statistics is ill-conditioned at this size (its
-    last blocks normalize 24 values a channel, 2 images of 3x4, through
-    ReLU6): a 1e-6 nudge of the images moves the port's own gradients by
-    a median 2.7% and up to 19%. Its gradients must lie within 3x that
-    spread of JAX's, tensor by tensor (or within 1e-3), the median within
-    2e-2 (measured 1.3e-2, up to 14%)."""
+
+    MobileNetV2 on batch statistics is ill-conditioned at every size
+    tried, and more images or larger inputs do not cure it: a nudge of
+    the images by 1e-8, which float32 mostly rounds away, moves the
+    port's own gradients by up to 13-20% (median 1.2-1.4%). Its limits
+    are fixed, from the readings against JAX at 2 x 96x128, 4 x 192x256
+    and 2 x 320x416 (``tests/gradient_conditioning.py``): every tensor
+    within 0.25 (measured at most 0.184, 0.197, 0.170), the heads' within
+    5e-2 (1.8e-2, 2.0e-2, 3.4e-2), the whole gradient within 2e-2 in L2
+    (1.03e-2, 7.3e-3, 7.5e-3), the median tensor within 2e-2 (1.8e-2 at
+    this size); and each tensor within 3x the port's own spread under a
+    1e-6 nudge, or within 1e-3."""
     c = loss_case
     model = c.model
     ref = params_from_jax(c.jgrads, N_CLASSES,
@@ -278,16 +289,24 @@ def test_loss_gradients_match_jax(loss_case):
                 for n, g in got.items()}
 
     err = errs(c.grads, ref)
+    worst = max(err.items(), key=lambda x: x[1])
     if not model.has_bn:
-        assert max(err.values()) <= 1e-5, max(err.items(), key=lambda x: x[1])
+        assert worst[1] <= 1e-5, worst
         return
+    assert worst[1] <= 0.25, worst
+    heads = {n: e for n, e in err.items() if not n.startswith("backbone.")}
+    assert max(heads.values()) <= 5e-2, heads
+    l2 = (sum(float(((c.grads[n] - ref[n]).double() ** 2).sum())
+              for n in c.grads)
+          / sum(float((ref[n].double() ** 2).sum()) for n in c.grads)) ** 0.5
+    assert l2 <= 2e-2, l2
+    assert np.median(list(err.values())) <= 2e-2
     nudged = c.images + np.float32(1e-6) * np.random.default_rng(0) \
         .standard_normal(c.images.shape).astype(np.float32)
     spread = errs(c.grads_at(nudged), c.grads)
     bad = {n: (e, spread[n]) for n, e in err.items()
            if not e <= max(3 * spread[n], 1e-3)}
     assert not bad, bad
-    assert np.median(list(err.values())) <= 2e-2
 
 
 def _zero_stats(model):
@@ -422,13 +441,18 @@ def _heads_tree(model):
     return tree
 
 
-def test_params_from_jax_single_map_is_strict():
+@pytest.fixture(scope="module")
+def jax_resnet18():
+    """JAX's resnet18 single-map detector and its init, 91 classes."""
+    jmodel = jb.SingleMapFasterRCNN(jb.SingleMapConfig("resnet18"))
+    return jmodel, jmodel.init(jax.random.key(0), bucket=(64, 64))
+
+
+def test_params_from_jax_single_map_is_strict(jax_resnet18):
     """The JAX tree of a resnet18 single-map model maps onto the port's
     (RPN conv 512 -> 256, fc6 from 512 x 7 x 7); a missing leaf or a
     class count that differs raises."""
-    jmodel = jb.SingleMapFasterRCNN(jb.SingleMapConfig("resnet18"))
-    params = jax.tree.map(np.array, jmodel.init(jax.random.key(0),
-                                                bucket=(64, 64)))
+    params = jax.tree.map(np.array, jax_resnet18[1])
     sd = params_from_jax(params, backbone="resnet18")
     assert sd["rpn_head.conv.weight"].shape == (256, 512, 3, 3)
     assert sd["box_head.fc6.weight"].shape == (1024, 512 * 49)
@@ -440,15 +464,14 @@ def test_params_from_jax_single_map_is_strict():
 
 
 # ------------------------------------------------------ freeze mask (2)
-def test_single_map_step_moves_the_tensors_jax_moves():
+def test_single_map_step_moves_the_tensors_jax_moves(jax_resnet18):
     """Trouble spot 2: JAX's freeze mask looks only under
     ``backbone.body``, so a single-map resnet torso trains whole, its
     FrozenBatchNorm affines included (parameters there). One SGD step of
     each optimizer on unit gradients moves the same set of tensors: every
     parameter of the port's model (the affines are parameters here too),
     none of its buffers."""
-    jmodel = jb.SingleMapFasterRCNN(jb.SingleMapConfig("resnet18"))
-    params = jmodel.init(jax.random.key(0), bucket=(64, 64))
+    params = jax_resnet18[1]
     tx, _ = jax_state.make_optimizer(base_lr=0.1, steps_per_epoch=10,
                                      params=params)
     updates, _ = jax.jit(tx.update)(jax.tree.map(jnp.ones_like, params),

@@ -150,7 +150,7 @@ def test_evaluate_mobile_net_matches_jax(case, coco_root, gopro_root,
     _, jax_build = tiny_single
     ckpt = _port_checkpoint(jax_build, mobilenet_pth, tmp_path / "m.pt")
     argv = EVAL_CASES[case]({"coco": coco_root, "gopro": gopro_root})
-    argv += ["--model", "mobile_net", "--workers", "2"]
+    argv += ["--model", "mobile_net", "--workers", "0"]
     loops = []
 
     def recorded(*args, **kwargs):
@@ -249,7 +249,7 @@ def test_estimator_gopro_blur_est_matches_jax(gopro_root, tiny_single,
                           include_fc=True))
     argv = ["--data-path", rendered, "--dataset", "GOPROBlurEst",
             "--LEHE_blur_seg", "--test_only", "--start_from_weights",
-            str(path), "-b", "2", "--workers", "2"]
+            str(path), "-b", "2", "--workers", "0"]
     ours = cli_est.main(argv + ["--device", "cpu",
                                 "--output_dir", str(tmp_path / "ours")])
     printed = capsys.readouterr().out
