@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, training, entry-point, remedy,
-deblur-first, blur-estimator, ensemble, single-map detector and
-natural-blur paths on one CUDA card.
+deblur-first, blur-estimator, ensemble, single-map detector,
+natural-blur, person-keypoint and PSF-bank paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -118,6 +118,26 @@ Phases (any failure exits non-zero and prints no result):
      ``GOPROSynthLoad``, and ``cli.train_blur_estimator --dataset
      GOPROBlurEst --LEHE_blur_seg`` (3 steps); each eval one forward
      launch per image, each kernel held on its inputs.
+
+ 12. Person keypoints, the bank writer and the profiling utilities: (a)
+     ``cli.generate_psfs`` on the card at the published canvas 256,
+     max_len 96, crop 128 and batch 128, cut to 128 PSFs in each of the
+     15 folders (PSFs/s); every file fp16 128x128 with its support in the
+     central window and its mass its exposure fraction, read back by
+     ``load_psf_bank``. (b) ``cli.train --dataset coco_kp --blur_train
+     --use_stored_psfs`` from that bank, on a synthetic person-keypoint
+     COCO (phase 8's image sizes, 8 train and 6 val images, 2-6 people
+     each with 17 keypoints, some unlabelled) at full width with 2
+     classes, from a He-scaled 2-class ``.pth`` with heads made to score
+     (batch 2, 3 steps, lr 1e-5): both kernels launched and held on their
+     inputs, the checkpoint back bit for bit, the steps' img/s. (c)
+     ``cli.evaluate --dataset coco_kp`` on it, clean and with
+     ``--image_output_dir``: one forward launch per image held on its
+     inputs, 19 finite stats with AP > 0 equal to the CPU's, one PNG per
+     image, none binarized. (d) One eval step timed with
+     ``utils/profiling.step_timer``, its ``device_memory_stats``, and the
+     step under ``trace``, whose file must name the RoIAlign forward
+     kernel.
 
 The last two lines are a JSON object describing each kernel (its
 ``launches`` summed over the counted runs of every path, one count per
@@ -998,11 +1018,6 @@ def run_entry_points(keep):
     import detectinblur_tpu_torch.cli.train as cli_train
     from detectinblur_tpu_torch.data import blur_sampling
     from detectinblur_tpu_torch.train import eval_loop
-    from detectinblur_tpu_torch.train.checkpoint import restore_checkpoint
-    from detectinblur_tpu_torch.train.state import (
-        create_train_state,
-        make_optimizer,
-    )
 
     banks, loops, path = [], [], ["cli.train"]
 
@@ -1055,26 +1070,11 @@ def run_entry_points(keep):
         del fwd, bwd
 
         ckpt = Path(out) / "model_0.pt"
-        model = cli_train.build_model(cli_train.train_parser().parse_args([]),
-                                      "cuda")
-        opt, _ = make_optimizer(model)
-        state = restore_checkpoint(str(ckpt), create_train_state(model, opt))
-        same_weights = all(torch.equal(a, b) for a, b in zip(
-            model.state_dict().values(),
-            run.state.model.state_dict().values()))
-        bufs = lambda o: [o.state[p]["momentum_buffer"]
-                          for g in o.param_groups for p in g["params"]]
-        same_momentum = (len(bufs(opt)) == len(bufs(run.state.optimizer)) > 0
-                         and all(torch.equal(a, b) for a, b in zip(
-                             bufs(opt), bufs(run.state.optimizer))))
-        print(f"{ckpt.name} ({ckpt.stat().st_size} bytes): weights "
-              f"{same_weights}, momentum buffers {same_momentum}, step "
-              f"{state.step} == {run.state.step}")
-        if not (same_weights and same_momentum
-                and state.step == run.state.step):
+        if not _same_checkpoint(ckpt, run, cli_train.build_model(
+                cli_train.train_parser().parse_args([]), "cuda")):
             sys.exit("restore_checkpoint did not give the state back bit for bit")
         shutil.copy(ckpt, keep / ckpt.name)
-        del model, opt, state, run
+        del run
 
         eval_launches = {"roi_align_fwd": 0, "roi_align_bwd": 0}
         buckets = set()
@@ -2391,11 +2391,6 @@ def run_single_map_entry_points():
     import detectinblur_tpu_torch.cli.train as cli_train
     import detectinblur_tpu_torch.cli.train_blur_estimator as cli_est
     from detectinblur_tpu_torch.train import eval_loop
-    from detectinblur_tpu_torch.train.checkpoint import restore_checkpoint
-    from detectinblur_tpu_torch.train.state import (
-        create_train_state,
-        make_optimizer,
-    )
     from synthetic_gopro import write_gopro
     from torso_weights import mobilenet_sd, resnet_sd
 
@@ -2457,22 +2452,12 @@ def run_single_map_entry_points():
         ckpt = str(out / "model_0.pt")
         model = cli_train.build_model(parse(["--model", "mobile_net"]),
                                       "cuda")
-        opt, _ = make_optimizer(model)
-        state = restore_checkpoint(ckpt, create_train_state(model, opt))
-        same = all(torch.equal(v, model.state_dict()[k]) for k, v in
-                   run.state.model.state_dict().items())
-        bufs = lambda o: [o.state[p]["momentum_buffer"]
-                          for g in o.param_groups for p in g["params"]]
-        same_m = len(bufs(opt)) == len(bufs(run.state.optimizer)) > 0 and all(
-            torch.equal(a, b) for a, b in zip(bufs(opt),
-                                              bufs(run.state.optimizer)))
+        same = _same_checkpoint(ckpt, run, model)
         count = model.backbone.stem_bn.num_batches_tracked.item()
-        print(f"{Path(ckpt).name}: weights and running statistics {same}, "
-              f"momentum {same_m}, step {state.step}, count {count}")
-        if not (same and same_m and state.step == run.state.step == 3
-                and count == 3.0):
+        print(f"running statistics' count {count}")
+        if not (same and run.state.step == 3 and count == 3.0):
             sys.exit("the mobile_net checkpoint did not come back bit for bit")
-        del model, opt, state, run
+        del model, run
 
         r50 = ["--data-path", root, "--model", "resnet_50", "--vanilla_eval",
                "--early_stop", "4", "--start_from_weights"]
@@ -2563,6 +2548,280 @@ def run_single_map_entry_points():
     return launches
 
 
+# ------------------------------------- person keypoints, tools, profiling
+def _scoring_pth(sd):
+    """A torchvision-layout detector state dict whose random heads score:
+    the class scores x4 and the foreground logits +3, as
+    ``_scoring_heads`` makes a model's."""
+    sd = dict(sd)
+    sd["roi_heads.box_predictor.cls_score.weight"] = (
+        sd["roi_heads.box_predictor.cls_score.weight"] * 4)
+    bias = sd["roi_heads.box_predictor.cls_score.bias"].copy()
+    bias[1:5] += 3
+    sd["roi_heads.box_predictor.cls_score.bias"] = bias
+    return sd
+
+
+def _same_checkpoint(ckpt, run, model):
+    """Whether ``ckpt`` restores ``run``'s weights and buffers (running
+    statistics included), momentum buffers and step bit for bit into
+    ``model`` (a fresh build of the same detector)."""
+    from detectinblur_tpu_torch.train.checkpoint import restore_checkpoint
+    from detectinblur_tpu_torch.train.state import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    opt, _ = make_optimizer(model)
+    state = restore_checkpoint(str(ckpt), create_train_state(model, opt))
+    same = all(torch.equal(v, model.state_dict()[k]) for k, v in
+               run.state.model.state_dict().items())
+    bufs = lambda o: [o.state[p]["momentum_buffer"]
+                      for g in o.param_groups for p in g["params"]]
+    same_m = len(bufs(opt)) == len(bufs(run.state.optimizer)) > 0 and all(
+        torch.equal(a, b) for a, b in zip(bufs(opt),
+                                          bufs(run.state.optimizer)))
+    print(f"{Path(ckpt).name} ({Path(ckpt).stat().st_size} bytes): weights "
+          f"and buffers {same}, momentum {same_m}, step {state.step} == "
+          f"{run.state.step}")
+    return same and same_m and state.step == run.state.step
+
+
+def check_psf_bank(root, per):
+    """Phase 12a's checks of a stored bank: every file fp16 128x128, its
+    support inside the central 128x128 window (``see_PSFs.py``), each
+    PSF's mass its folder's exposure fraction within 0.02, and the bank
+    read back by ``load_psf_bank`` equal to the files."""
+    from detectinblur_tpu_torch.data.blur_sampling import load_psf_bank
+    from detectinblur_tpu_torch.ops.psf import BLUR_FRACTIONS
+
+    bank = load_psf_bank(str(root))
+    if bank.shape != (3, 5, per, 128, 128):
+        sys.exit(f"load_psf_bank: shape {bank.shape}")
+    worst = 0.0
+    for pi in range(3):
+        for fi, fraction in enumerate(BLUR_FRACTIONS):
+            for i in range(per):
+                with open(root / f"P{pi + 1}E{fi}" / f"I{i:06d}", "rb") as f:
+                    psf = np.load(f)
+                if psf.dtype != np.float16 or psf.shape != (128, 128):
+                    sys.exit(f"P{pi + 1}E{fi}/I{i:06d}: {psf.dtype} "
+                             f"{psf.shape}, want float16 (128, 128)")
+                ys, xs = np.nonzero(psf > 0)
+                c = psf.shape[0]
+                lo, hi = c // 2 - 64, c // 2 + 64
+                if len(ys) and (ys.min() < lo or ys.max() >= hi
+                                or xs.min() < lo or xs.max() >= hi):
+                    sys.exit(f"P{pi + 1}E{fi}/I{i:06d}: support exceeds the "
+                             "central 128 window")
+                if not np.array_equal(bank[pi, fi, i], psf.astype(np.float32)):
+                    sys.exit(f"load_psf_bank differs from P{pi + 1}E{fi}/"
+                             f"I{i:06d}")
+                worst = max(worst, abs(float(psf.astype(np.float64).sum())
+                                       - fraction))
+    print(f"PSF bank {bank.shape}: fp16 files, support in the central "
+          f"window, max |mass - exposure fraction| {worst:.3g} (tolerance "
+          "0.02)")
+    if worst > 0.02:
+        sys.exit("a stored PSF's mass is not its exposure fraction")
+
+
+def run_keypoint_entry_points():
+    """Phase 12: ``cli.generate_psfs`` on the card (128 PSFs a folder, the
+    published canvas 256, max_len 96, crop 128 and batch 128), its bank
+    checked and read back; ``cli.train --dataset coco_kp`` from that bank
+    on a synthetic person-keypoint COCO at full width (2 classes) and
+    ``cli.evaluate --dataset coco_kp`` on its checkpoint, clean and with
+    ``--image_output_dir``, against the CPU; then one eval step timed
+    with ``utils/profiling.step_timer``, its ``device_memory_stats`` and
+    a ``trace`` that must name the RoIAlign forward kernel. Returns the
+    launches per CLI and the phase's readings."""
+    import detectinblur_tpu_torch.cli.evaluate as cli_eval
+    import detectinblur_tpu_torch.cli.generate_psfs as cli_gen
+    import detectinblur_tpu_torch.cli.train as cli_train
+    from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
+    from detectinblur_tpu_torch.data.blur_sampling import BlurPolicy
+    from detectinblur_tpu_torch.data.coco import get_coco_kp
+    from detectinblur_tpu_torch.data.loader import DetectionLoader
+    from detectinblur_tpu_torch.train import eval_loop
+    from detectinblur_tpu_torch.train.checkpoint import restore_weights
+    from detectinblur_tpu_torch.train.engine import make_eval_step
+    from detectinblur_tpu_torch.utils.profiling import (
+        device_memory_stats,
+        step_timer,
+        trace,
+    )
+    from synthetic_coco import COCO_SIZES, write_coco_kp
+    from torch_reference import make_random_fasterrcnn_sd
+
+    loops, steps, launches, out = [], [], {}, {}
+
+    def recorded_eval(*args, **kwargs):
+        stats, loop = eval_loop.evaluate_coco(*args, **kwargs)
+        loops.append(loop)
+        return stats, loop
+
+    make_train_step = cli_train.make_train_step
+
+    def timed_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def timed(state, batch, generator=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = step(state, batch, generator=generator)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0, batch.images.shape[0]))
+            return result
+        return timed
+
+    cli_train.evaluate_coco = cli_eval.evaluate_coco = recorded_eval
+    cli_train.make_train_step = timed_train_step
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        per = 128
+        t0 = time.perf_counter()
+        gen = cli_gen.main(["--output_path", str(tmp / "psfs"),
+                            "--num_psfs", str(per)])
+        wall = time.perf_counter() - t0
+        out["generate_psfs"] = {"psfs": gen["psfs"], "seconds": wall,
+                                "psfs_per_s": gen["psfs"] / wall}
+        print("cli.generate_psfs " + json.dumps(out["generate_psfs"]))
+        check_psf_bank(tmp / "psfs", per)
+
+        t0 = time.perf_counter()
+        sizes = lambda n: [COCO_SIZES[i % len(COCO_SIZES)] for i in range(n)]
+        root = write_coco_kp(str(tmp / "coco_kp"), {
+            "train2017": sizes(8), "val2017": sizes(6)}, seed=0,
+            persons=(2, 6), box_frac=(0.1, 0.6))
+        pth = str(tmp / "random_2class.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in _scoring_pth(
+            make_random_fasterrcnn_sd(np.random.default_rng(0),
+                                      num_classes=2)).items()}, pth)
+        print(f"phase 12 data (person-keypoint COCO, 8 + 6 images; 2-class "
+              f"weights): {time.perf_counter() - t0:.2f} s")
+
+        ckpt_dir = tmp / "out"
+        fwd, bwd = {}, {}
+        t0 = time.perf_counter()
+        with _capture_roi_align(fwd, bwd):
+            run, n = _counted(lambda: cli_train.main([
+                "--data-path", root, "--dataset", "coco_kp", "--blur_train",
+                "--use_stored_psfs", "--stored_psf_directory",
+                str(tmp / "psfs"), "-b", "2", "--epochs", "1",
+                "--early_stop", "3", "--output_dir", str(ckpt_dir),
+                "--print-freq", "1", "--lr", "1e-5", "--start_from_weights",
+                pth]))
+        print(f"cli.train --dataset coco_kp: {time.perf_counter() - t0:.2f} "
+              f"s, launches {n}, losses " + json.dumps(run.losses))
+        if min(n.values()) == 0 or len(run.losses) != 3 or not all(
+                np.isfinite(v) for m in run.losses for v in m.values()):
+            sys.exit("cli.train --dataset coco_kp: no launch, or missing or "
+                     "non-finite losses")
+        if run.state.model.cfg.num_classes != 2:
+            sys.exit("cli.train --dataset coco_kp: not a 2-class model")
+        check_captured("cli.train --dataset coco_kp", fwd, bwd)
+        launches["cli_train_coco_kp"] = n
+        ckpt = ckpt_dir / "model_0.pt"
+        kp_args = cli_train.train_parser().parse_args(["--dataset", "coco_kp"])
+        if not _same_checkpoint(ckpt, run, cli_train.build_model(kp_args,
+                                                                 "cuda")):
+            sys.exit("the coco_kp checkpoint did not come back bit for bit")
+        warm = steps[1:]
+        out["train_step_img_s"] = (sum(b for _, b in warm)
+                                   / sum(s for s, _ in warm))
+        out["train_step_s"] = [s for s, _ in steps]
+        del run, fwd, bwd
+
+        clean = ["--data-path", root, "--dataset", "coco_kp", "--resume",
+                 str(ckpt), "--vanilla_eval"]
+        images = 6
+        results = {}
+        for name, argv in (("clean", clean), ("image_output_dir", clean + [
+                "--image_output_dir", str(tmp / "png")])):
+            path = f"cli.evaluate --dataset coco_kp {name}"
+            fwd = {}
+            t0 = time.perf_counter()
+            with _capture_roi_align(fwd, {}):
+                stats, n = _counted(lambda: cli_eval.main(argv))
+            print(f"{path}: {time.perf_counter() - t0:.2f} s, launches {n}, "
+                  f"images {loops[-1]['images']}, detections "
+                  f"{loops[-1]['detections']}")
+            _check_stats(path, stats)
+            if n["roi_align_fwd"] != images or loops[-1]["images"] != images:
+                sys.exit(f"{path}: roi_align_fwd launched "
+                         f"{n['roi_align_fwd']} times for {images} images")
+            check_captured(path, fwd, {})
+            launches["cli_evaluate_coco_kp_" + name] = n
+            results[name] = stats, loops[-1]
+            del fwd
+        card, card_loop = results["clean"]
+        if not card[0] > 0:
+            sys.exit(f"cli.evaluate --dataset coco_kp: AP {card[0]}, no box "
+                     "matched: nothing to compare")
+        if not np.array_equal(card, results["image_output_dir"][0]):
+            sys.exit("--image_output_dir changed the eval's stats")
+        pngs = sorted((tmp / "png").iterdir())
+        from PIL import Image
+
+        distinct = [len(np.unique(np.asarray(Image.open(p)))) for p in pngs]
+        print(f"--image_output_dir: {len(pngs)} PNGs, distinct values "
+              f"{distinct}")
+        if len(pngs) != min(50, images) or min(distinct) <= 2:
+            sys.exit("--image_output_dir: missing or binarized PNGs")
+        t0 = time.perf_counter()
+        cpu = cli_eval.main(clean + ["--device", "cpu"])
+        err = np.abs(np.asarray(card) - cpu)
+        cpu_dets, card_dets = loops[-1]["detections"], card_loop["detections"]
+        ok = bool(((err <= 1e-3) & (err <= 1e-3 * np.abs(cpu) + 1e-7)).all()
+                  ) and abs(card_dets - cpu_dets) <= 0.02 * max(cpu_dets, 1)
+        print(f"card vs CPU cli.evaluate --dataset coco_kp "
+              f"({time.perf_counter() - t0:.2f} s on the CPU): max |stat "
+              f"difference| {err.max():.3g}, tolerance 1e-3 and 1e-3 of each "
+              f"stat; detections {card_dets} vs {cpu_dets}, tolerance 2%: "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok or cpu_dets == 0:
+            sys.exit("the card's coco_kp eval disagrees with the CPU's")
+        out["eval_img_s"] = card_loop["img_s"]
+        out["eval_step_ms_per_image"] = card_loop["step_ms_per_image"]
+
+        # The eval step under the profiling utilities, on the first val
+        # image at its CLI bucket.
+        model = restore_weights(str(ckpt), cli_train.build_model(kp_args,
+                                                                 "cuda"))
+        loader = DetectionLoader(get_coco_kp(root, "val"), 1,
+                                 BlurPolicy(prob=0.0), None, shuffle=False,
+                                 drop_last=False, num_workers=0)
+        batch, _, _ = next(iter(loader))
+        step = make_eval_step(model, model_bucket_for_batch(batch.hw))
+        gen = torch.Generator(device=model.device).manual_seed(0)
+        step(model, batch, gen)
+        reps = 10
+        with step_timer(sync=model.device) as t:
+            for _ in range(reps):
+                step(model, batch, gen)
+        out["profiled_eval_step_ms"] = t.seconds / reps * 1e3
+        out["device_memory_stats"] = device_memory_stats(model.device)
+        with trace(str(tmp / "trace"), device=model.device):
+            step(model, batch, gen)
+            torch.cuda.synchronize()
+        events = json.load(open(tmp / "trace" / "trace.json"))["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        named = sorted(k for k in kernels if "roi_align_fwd_kernel" in k)
+        print(f"trace: {len(kernels)} kernel names, RoIAlign forward as "
+              f"{named}")
+        if not named:
+            sys.exit("the profiler trace does not name the RoIAlign forward "
+                     "kernel")
+        del model, step
+    cli_train.make_train_step = make_train_step
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for s in loops:
+        print("eval loop " + json.dumps(s))
+    return launches, out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -2647,6 +2906,11 @@ def main():
                "bwd_ms": v[3]["ms"], "bwd_bound_ms": v[3]["bound_ms"]}
         for flag, v in single.items()} | {
             "seconds": time.perf_counter() - t0}))
+
+    t0 = time.perf_counter()
+    kp_launches, kp = run_keypoint_entry_points()
+    entry.update(kp_launches)
+    print("phase 12 " + json.dumps(kp | {"seconds": time.perf_counter() - t0}))
 
     by_path = {
         "roi_align_fwd": {"serving": launches,

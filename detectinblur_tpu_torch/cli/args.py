@@ -2,11 +2,13 @@
 (``detectinblur_tpu/cli/args.py``, after the reference's train.py:393-488
 and evaluate.py:378-468), except ``--device``, which defaults to ``cuda``.
 
-Flags whose feature the port does not have yet are parsed as there, and
-``refuse_unported`` raises ``NotImplementedError`` naming each one that
-was set; so do the evaluation-only flags (``EVAL_ONLY``: deblur-first,
-the ensemble and the natural-blur datasets) given to ``cli.train``, which
-never reads them: no flag is silently ignored. ``estimator_parser`` is
+Every flag is parsed as there. ``refuse_unported`` raises
+``NotImplementedError`` naming a value the port does not support
+(``--world-size`` > 1, a ``--dataset`` or ``--model`` outside
+``_SUPPORTED``), and each evaluation-only flag (``EVAL_ONLY``:
+deblur-first, the ensemble, the natural-blur datasets and
+``--image_output_dir``) given to ``cli.train``, which never reads them:
+no flag is silently ignored. ``estimator_parser`` is
 the blur estimator trainer's (JAX ``cli/train_blur_estimator.py:35-51``).
 """
 
@@ -17,16 +19,14 @@ from typing import Optional
 
 # dest -> what the port supports; any other value raises.
 _SUPPORTED = {
-    "dataset": ("coco",),
+    "dataset": ("coco", "coco_kp"),
     "model": ("fasterrcnn_resnet50_fpn", "mobile_net", "resnet_50"),
 }
-# Flags whose every non-default value raises.
-UNPORTED = ("image_output_dir",)
 # Flags that only cli.evaluate reads (JAX's cli/train.py never does).
 EVAL_ONLY = (
     "deblur_first", "deblurer_model_location",
     "use_ensemble", "ensemble_model_paths", "blur_estimator_path", "LEHE",
-    "blurred_dataset", "expand_synth_boxes",
+    "blurred_dataset", "expand_synth_boxes", "image_output_dir",
 )
 
 
@@ -175,10 +175,9 @@ def refuse_unported(parser: argparse.ArgumentParser,
     port does not support yet (``--dataset`` outside ``datasets``), and
     every flag of ``not_read`` (those the calling CLI does not read) that
     was set."""
-    asked = set_flags(parser, args, UNPORTED)
     supported = dict(_SUPPORTED, dataset=tuple(datasets))
-    asked += [f"--{d} {getattr(args, d)}" for d, ok in supported.items()
-              if getattr(args, d) not in ok]
+    asked = [f"--{d} {getattr(args, d)}" for d, ok in supported.items()
+             if getattr(args, d) not in ok]
     if args.world_size > 1:
         asked.append(f"--world-size {args.world_size}")
     unread = set_flags(parser, args, not_read)

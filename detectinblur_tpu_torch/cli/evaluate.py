@@ -4,7 +4,9 @@
         --resume model_36.pt --blur_eval [--param_index 1] [--device cpu]
 
 Port of ``detectinblur_tpu/cli/evaluate.py`` (evaluate.py of the
-reference): one clean COCO val eval (``--vanilla_eval``, or without
+reference): on ``--dataset coco`` or ``coco_kp`` (the person-keypoint
+annotations, 2 classes, bbox stats), one clean COCO val eval
+(``--vanilla_eval``, or without
 ``--blur_eval``), or the synthetic blur sweep, EVAL_PARAMS[1:] x
 EVAL_FRACTIONS[1:] with every image blurred (evaluate.py:299-370), from a
 generated or a stored PSF bank, optionally with the expanded-GT rewrite
@@ -31,7 +33,9 @@ REDS, RealBlur, VidBlur) instead of COCO: batch 1 in the source bucket
 736x1312, no synthetic blur, every remedy the flags ask for, against a
 COCO index built from the set's pseudo ground truth;
 ``--expand_synth_boxes`` walks GOPROSynth's boxes through its optical
-flow.
+flow; ``--blurred_dataset`` wins over ``--dataset``, as in JAX.
+``--image_output_dir`` writes the first 50 images of each eval with their
+detections drawn (``utils/visualization.py``).
 
 Refused with ``ValueError``, where the JAX CLI goes wrong: ``--deblur_first``
 without a model path (JAX evaluates without deblurring) or a path without
@@ -53,14 +57,18 @@ import numpy as np
 import torch
 
 from detectinblur_tpu_torch.cli.args import eval_parser, refuse_unported
-from detectinblur_tpu_torch.cli.train import BLUR_STAT_TAGS, build_model
+from detectinblur_tpu_torch.cli.train import (
+    BLUR_STAT_TAGS,
+    build_model,
+    check_class_count,
+    get_datasets,
+)
 from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
 from detectinblur_tpu_torch.data.blur_sampling import (
     BlurPolicy,
     generate_psf_bank,
     load_psf_bank,
 )
-from detectinblur_tpu_torch.data.coco import get_coco
 from detectinblur_tpu_torch.data.loader import DetectionLoader
 from detectinblur_tpu_torch.data.natural_datasets import get_natural_dataset
 from detectinblur_tpu_torch.ops.psf import EVAL_FRACTIONS, EVAL_PARAMS
@@ -113,6 +121,7 @@ def load_params(model, path: str):
                                        num_batches=16.0)})
             print("loaded ImageNet torso weights; detection heads are random")
             return model
+        check_class_count(sd, model.cfg.num_classes, path)
         model.load_state_dict(params_from_torchvision(
             sd, model.cfg.num_classes, frozen_bn=not model.has_bn,
             num_batches=16.0))
@@ -215,7 +224,8 @@ def run_cell(args, model, dataset_val, policy: BlurPolicy, psf_bank,
     stats, _ = evaluate_coco(
         eval_step, model, loader,
         dataset_val.index if coco_index is None else coco_index,
-        expand_target_boxes=expand, early_stop=args.early_stop)
+        expand_target_boxes=expand, early_stop=args.early_stop,
+        image_output_dir=args.image_output_dir)
     print(f"model buckets met: {len(met)} {sorted(met)}")
     if choices:
         counts = torch.bincount(torch.stack(choices).cpu(), minlength=4)
@@ -272,7 +282,7 @@ def main(argv=None):
                                   float(value), 0)
             return stats
 
-        dataset_val = get_coco(args.data_path, "val")
+        dataset_val, = get_datasets(args, ("val",))
         if args.vanilla_eval or not args.blur_eval:
             stats = cell(args, model, dataset_val, BlurPolicy(prob=0.0), None)
             for name, value in zip(BLUR_STAT_TAGS, stats[:12]):

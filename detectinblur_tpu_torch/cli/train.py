@@ -6,7 +6,9 @@
 Port of ``detectinblur_tpu/cli/train.py`` (train.py:89-391 of the
 reference), in one process, for ``--model`` ``fasterrcnn_resnet50_fpn``
 (the default), ``mobile_net`` or ``resnet_50`` (the single-map detectors
-of ``models/backbones.py``): COCO train split -> loader (AugMix, hflip
+of ``models/backbones.py``), on ``--dataset coco`` (91 classes) or
+``coco_kp`` (COCO's person-keypoint annotations, 2 classes): COCO train
+split -> loader (AugMix, hflip
 0.5, blur decisions) -> PSF bank (generated on the card, or stored) ->
 per-batch train steps (blur, corruptions, GT expansion, loss, backward,
 SGD), the non-finite loss guard, a checkpoint each epoch and a clean plus
@@ -17,8 +19,12 @@ BatchNorms in ``train`` mode, also in the evals), ``--add_noise``,
 ``--add_block``, ``--add_jpeg_artefacts`` and the AugMix flags. Flags the
 port does not have yet raise ``NotImplementedError`` (``cli/args.py``);
 DDP training (``--world-size`` > 1) is among them. So do the flags of
-deblur-first, of the ensemble and of the natural-blur datasets, which
-only ``cli.evaluate`` reads.
+deblur-first, of the ensemble, of the natural-blur datasets and
+``--image_output_dir``, which only ``cli.evaluate`` reads. A detector
+``.pth`` whose box predictor has another class count than the dataset's
+raises ``ValueError`` naming both when the file is loaded, before the
+first step; JAX fails on it at that step, in Flax's shape check
+(ROADMAP, Queue 3).
 
 As in JAX, each batch's model bucket comes from ``model_bucket_for_batch``
 with the FPN's 800/1333 for every model, so a single-map detector resizes
@@ -47,7 +53,7 @@ from detectinblur_tpu_torch.data.blur_sampling import (
     generate_psf_bank,
     load_psf_bank,
 )
-from detectinblur_tpu_torch.data.coco import get_coco
+from detectinblur_tpu_torch.data.coco import get_coco, get_coco_kp
 from detectinblur_tpu_torch.data.loader import DetectionLoader
 from detectinblur_tpu_torch.models.backbones import (
     SingleMapConfig,
@@ -90,20 +96,43 @@ class TrainRun(NamedTuple):
 
 # --model -> the single-map detector's torso (JAX cli/train.py:38-58).
 SINGLE_MAP_TORSOS = {"mobile_net": "mobile_net", "resnet_50": "resnet50"}
+# The box predictor's output row per class, background included.
+PREDICTOR_KEY = "roi_heads.box_predictor.cls_score.weight"
+
+
+def num_classes_for(args) -> int:
+    """2 (background and person) for ``--dataset coco_kp``, else COCO's 91
+    (JAX cli/train.py:43)."""
+    return 2 if args.dataset == "coco_kp" else 91
+
+
+def get_datasets(args, splits=("train", "val")):
+    """The ``--dataset``'s COCO splits: instances, or person keypoints."""
+    get = get_coco_kp if args.dataset == "coco_kp" else get_coco
+    return [get(args.data_path, split) for split in splits]
+
+
+def check_class_count(sd, num_classes: int, path: str) -> None:
+    """``ValueError`` naming both counts if the detector state dict's box
+    predictor has another class count than the model."""
+    if PREDICTOR_KEY in sd and sd[PREDICTOR_KEY].shape[0] != num_classes:
+        raise ValueError(
+            f"{path} has a {sd[PREDICTOR_KEY].shape[0]}-class box "
+            f"predictor; the model has {num_classes} classes")
 
 
 def build_model(args, device) -> TwoStageDetector:
-    """The ``--model`` detector with COCO's 91 classes on ``device``:
-    Faster R-CNN ResNet50-FPN, warping inside with ``--warp_in_model``, or
-    the single-map ``mobile_net`` / ``resnet_50`` (min 300 / max 500,
-    no warp: JAX's build ignores the flag); the BatchNorms in the mode
-    the flags ask for (``bn_mode_for``)."""
+    """The ``--model`` detector with the ``--dataset``'s classes on
+    ``device``: Faster R-CNN ResNet50-FPN, warping inside with
+    ``--warp_in_model``, or the single-map ``mobile_net`` / ``resnet_50``
+    (min 300 / max 500, no warp: JAX's build ignores the flag); the
+    BatchNorms in the mode the flags ask for (``bn_mode_for``)."""
     if args.model in SINGLE_MAP_TORSOS:
         return SingleMapFasterRCNN(SingleMapConfig(
-            SINGLE_MAP_TORSOS[args.model], num_classes=91,
+            SINGLE_MAP_TORSOS[args.model], num_classes=num_classes_for(args),
             bn_mode=bn_mode_for(args)), device=device)
     return FasterRCNN(FasterRCNNConfig(
-        num_classes=91, warp_internally=args.warp_in_model,
+        num_classes=num_classes_for(args), warp_internally=args.warp_in_model,
         bn_mode=bn_mode_for(args)), device=device)
 
 
@@ -136,6 +165,7 @@ def load_initial_params(args, model: TwoStageDetector) -> TwoStageDetector:
         print(f"loaded ImageNet torso weights from {path}; the detection "
               "heads stay random")
         return model
+    check_class_count(sd, model.cfg.num_classes, path)
     model.load_state_dict(params_from_torchvision(
         sd, model.cfg.num_classes, frozen_bn=model.cfg.bn_mode is None))
     print(f"loaded torch weights from {path}")
@@ -150,8 +180,7 @@ def main(argv=None) -> TrainRun:
     device = resolve_device(args.device)
     np.random.seed(1337)
 
-    dataset = get_coco(args.data_path, "train")
-    dataset_val = get_coco(args.data_path, "val")
+    dataset, dataset_val = get_datasets(args)
 
     policy = BlurPolicy.training_default(
         low=args.low_exposure, high=args.high_exposure

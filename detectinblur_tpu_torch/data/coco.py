@@ -1,14 +1,14 @@
 """COCO detection dataset (host side).
 
-Port of ``CocoDetection`` and ``get_coco``
-(``detectinblur_tpu/data/coco.py:22,110``): xywh -> xyxy boxes clamped
-to the image, crowd annotations dropped, degenerate boxes dropped, and
-empty images filtered out of the train split. Items are the same numpy
-dicts: image [H, W, 3] uint8, boxes [N, 4] float32 xyxy, labels [N]
-int32, image_id, area, iscrowd.
-
-Masks and keypoints raise ``NotImplementedError``: the port has no
-segmentation or keypoint model.
+Port of ``CocoDetection``, ``get_coco`` and ``get_coco_kp``
+(``detectinblur_tpu/data/coco.py:22,110,124``): xywh -> xyxy boxes
+clamped to the image, crowd annotations dropped, degenerate boxes
+dropped, and empty images filtered out of the train split. Items are the
+same numpy dicts: image [H, W, 3] uint8, boxes [N, 4] float32 xyxy,
+labels [N] int32, image_id, area, iscrowd; with ``with_masks`` also
+masks [N, H, W] uint8 (from polygons or RLE), with ``with_keypoints``
+keypoints [N, K, 3] float32 (x, y, visibility), padded to the largest K
+of the image.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Dict, List
 import numpy as np
 from PIL import Image
 
+from detectinblur_tpu_torch.eval import rle as rle_mod
 from detectinblur_tpu_torch.eval.coco_index import COCOIndex
 
 
@@ -31,12 +32,10 @@ class CocoDetection:
         with_masks: bool = False,
         with_keypoints: bool = False,
     ):
-        for name, asked in (("with_masks", with_masks),
-                            ("with_keypoints", with_keypoints)):
-            if asked:
-                raise NotImplementedError(f"not ported yet: {name}")
         self.img_dir = img_dir
         self.index = COCOIndex(ann_file)
+        self.with_masks = with_masks
+        self.with_keypoints = with_keypoints
         self.ids = self.index.get_img_ids()
         if train_filter:
             self.ids = [i for i in self.ids if self._has_valid_anns(i)]
@@ -71,7 +70,7 @@ class CocoDetection:
         boxes[:, 1::2] = boxes[:, 1::2].clip(0, h)
         keep = (boxes[:, 3] > boxes[:, 1]) & (boxes[:, 2] > boxes[:, 0])
         anns = [a for a, k in zip(anns, keep) if k]
-        return {
+        out = {
             "image": img,
             "image_id": img_id,
             "boxes": boxes[keep],
@@ -79,6 +78,18 @@ class CocoDetection:
             "area": np.array([a["area"] for a in anns], np.float32),
             "iscrowd": np.zeros(len(anns), np.int32),
         }
+        if self.with_masks:
+            out["masks"] = np.stack(
+                [rle_mod.masks_from_segmentation(a["segmentation"], h, w)
+                 for a in anns]) if anns else np.zeros((0, h, w), np.uint8)
+        if self.with_keypoints:
+            kps = [np.asarray(a.get("keypoints", []), np.float32).reshape(-1, 3)
+                   for a in anns]
+            K = max((k.shape[0] for k in kps), default=0)
+            kps = [np.pad(k, ((0, K - k.shape[0]), (0, 0))) for k in kps]
+            out["keypoints"] = (np.stack(kps) if anns and K else
+                                np.zeros((len(anns), K, 3), np.float32))
+        return out
 
 
 def get_coco(root: str, image_set: str = "train") -> CocoDetection:
@@ -94,4 +105,21 @@ def get_coco(root: str, image_set: str = "train") -> CocoDetection:
         os.path.join(root, img_folder),
         os.path.join(root, ann_file),
         train_filter=(image_set == "train"),
+    )
+
+
+def get_coco_kp(root: str, image_set: str = "train") -> CocoDetection:
+    """``get_coco`` on the person-keypoint annotations
+    (``annotations/person_keypoints_{train,val}2017.json``), items with
+    their keypoints."""
+    paths = {
+        "train": ("train2017", "annotations/person_keypoints_train2017.json"),
+        "val": ("val2017", "annotations/person_keypoints_val2017.json"),
+    }
+    img_folder, ann_file = paths[image_set]
+    return CocoDetection(
+        os.path.join(root, img_folder),
+        os.path.join(root, ann_file),
+        train_filter=(image_set == "train"),
+        with_keypoints=True,
     )

@@ -126,7 +126,7 @@ class DetectionLoader:
                 keep = ((boxes[:, 2] > boxes[:, 0])
                         & (boxes[:, 3] > boxes[:, 1]))
                 item["boxes"] = boxes[keep]
-                for k in ("labels", "area", "iscrowd"):
+                for k in ("labels", "area", "iscrowd", "keypoints"):
                     if k in item:
                         item[k] = item[k][keep]
         if item.get("pre_blurred"):

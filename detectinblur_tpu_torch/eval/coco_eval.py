@@ -1,17 +1,23 @@
-"""COCO bbox evaluation in numpy, with the repo's 19-stat summary.
+"""COCO evaluation in numpy: bbox with the repo's 19-stat summary, segm
+and keypoints.
 
-Copy of the bbox path of ``detectinblur_tpu/eval/coco_eval.py``
-(``bbox_iou_crowd`` :50, ``COCOEval`` :72, the patched ``summarize``
-:331, ``print_summary``, ``STAT_NAMES``):
+Copy of ``detectinblur_tpu/eval/coco_eval.py`` (``bbox_iou_crowd`` :50,
+``COCOEval`` :72, ``_compute_oks`` :132, the patched ``summarize`` :331,
+``print_summary``, ``STAT_NAMES``, ``KPT_SIGMAS``, ``KPT_STAT_NAMES``):
 
   * per-(image, category) greedy matching of score-sorted detections to
     ground truth at 10 IoU thresholds, with crowd/ignore semantics,
   * accumulation into the [T, R, K, A, M] interpolated-precision tensor,
-  * the standard 12 summary stats extended with AR@.5 and the per-area
-    AP@.5 and AR@.5 (stats[12..18]).
+  * ``bbox`` and ``segm``: the standard 12 summary stats extended with
+    AR@.5 and the per-area AP@.5 and AR@.5 (stats[12..18]); ``segm``
+    matches RLE masks through ``eval/rle.py::iou_matrix``,
+  * ``keypoints``: OKS matching with COCO's 17 person sigmas, maxDets
+    [20], GT without a labelled keypoint ignored, and the standard 10
+    stats (``KPT_STAT_NAMES``).
 
-``segm`` and ``keypoints`` raise ``NotImplementedError``: the port has no
-RLE masks and no OKS matching yet.
+Where JAX's ``segm`` fails on a GT segmentation given as polygons (it
+reads them as an RLE), the port rasterizes them on the image's canvas
+first, as pycocotools does (ROADMAP, Queue 3).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from detectinblur_tpu_torch.eval import rle as rle_mod
 from detectinblur_tpu_torch.eval.coco_index import COCOIndex
 
 AREA_RNG = [
@@ -36,6 +43,14 @@ STAT_NAMES = [
     "AR1", "AR10", "AR100", "ARs", "ARm", "ARl",
     "AR50", "AP50s", "AP50m", "AP50l", "AR50s", "AR50m", "AR50l",
 ]
+
+# COCO person-keypoint OKS sigmas (pycocotools cocoeval.py Params.setKpParams).
+KPT_SIGMAS = np.array(
+    [.26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62,
+     1.07, 1.07, .87, .87, .89, .89]) / 10.0
+
+KPT_STAT_NAMES = ["AP", "AP50", "AP75", "APm", "APl",
+                  "AR", "AR50", "AR75", "ARm", "ARl"]
 
 
 def bbox_iou_crowd(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
@@ -64,12 +79,12 @@ class COCOEval:
     """Evaluator over a GT index and a results index.
 
     Usage: evaluate(); accumulate(); summarize(). ``eval_imgs`` entries
-    are plain dicts keyed like pycocotools'."""
+    are plain dicts keyed like pycocotools'. The GT index's annotations
+    are read, never changed."""
 
     def __init__(self, coco_gt: COCOIndex, coco_dt: COCOIndex, iou_type: str = "bbox"):
-        if iou_type != "bbox":
-            raise NotImplementedError(
-                f"iou_type {iou_type!r}: only bbox evaluation is ported")
+        if iou_type not in ("bbox", "segm", "keypoints"):
+            raise ValueError(f"iou_type {iou_type!r}")
         self.coco_gt = coco_gt
         self.coco_dt = coco_dt
         self.iou_type = iou_type
@@ -77,13 +92,27 @@ class COCOEval:
         self.cat_ids: List[int] = coco_gt.get_cat_ids() or [-1]
         self.iou_thrs = np.linspace(0.5, 0.95, 10)
         self.rec_thrs = np.linspace(0.0, 1.0, 101)
-        self.max_dets = [1, 10, 100]
+        self.max_dets = [20] if iou_type == "keypoints" else [1, 10, 100]
+        self.kpt_sigmas = KPT_SIGMAS
         self.eval_imgs: Dict = {}
         self.eval: Optional[dict] = None
         self.stats: Optional[np.ndarray] = None
         self._gts = defaultdict(list)
         self._dts = defaultdict(list)
         for a in coco_gt.dataset.get("annotations", []):
+            if iou_type == "keypoints":
+                # cocoeval._prepare: GT without a labelled keypoint is
+                # ignored.
+                a = dict(a)
+                nk = a.get("num_keypoints")
+                if nk is None and "keypoints" in a:
+                    nk = int(np.count_nonzero(
+                        np.asarray(a["keypoints"])[2::3] > 0))
+                a["ignore"] = a.get("ignore", 0) or (nk == 0)
+            elif iou_type == "segm" and isinstance(a["segmentation"], list):
+                img = coco_gt.imgs[a["image_id"]]
+                a = dict(a, segmentation=rle_mod.to_rle(
+                    a["segmentation"], img["height"], img["width"]))
             self._gts[(a["image_id"], a["category_id"])].append(a)
         for a in coco_dt.dataset.get("annotations", []):
             self._dts[(a["image_id"], a["category_id"])].append(a)
@@ -97,9 +126,46 @@ class COCOEval:
         order = np.argsort([-d["score"] for d in dts], kind="mergesort")
         dts = [dts[i] for i in order][: self.max_dets[-1]]
         iscrowd = np.array([g.get("iscrowd", 0) for g in gts])
-        d = np.array([dt["bbox"] for dt in dts], np.float64)
-        g = np.array([gt["bbox"] for gt in gts], np.float64)
-        return bbox_iou_crowd(d, g, iscrowd)
+        if self.iou_type == "bbox":
+            d = np.array([dt["bbox"] for dt in dts], np.float64)
+            g = np.array([gt["bbox"] for gt in gts], np.float64)
+            return bbox_iou_crowd(d, g, iscrowd)
+        if self.iou_type == "segm":
+            return rle_mod.iou_matrix([dt["segmentation"] for dt in dts],
+                                      [gt["segmentation"] for gt in gts],
+                                      iscrowd)
+        return self._compute_oks(dts, gts)
+
+    def _compute_oks(self, dts, gts):
+        """Object keypoint similarity matrix (cocoeval.py computeOks): per
+        labelled GT keypoint, a Gaussian of the position error scaled by
+        the keypoint's sigma and the GT's area; a GT with no labelled
+        keypoint scores each detected keypoint by its distance outside
+        the GT box grown by its size on each side."""
+        var = (2.0 * self.kpt_sigmas) ** 2
+        k = len(self.kpt_sigmas)
+        ious = np.zeros((len(dts), len(gts)))
+        for j, gt in enumerate(gts):
+            g = np.asarray(gt["keypoints"], np.float64)
+            xg, yg, vg = g[0::3], g[1::3], g[2::3]
+            k1 = int(np.count_nonzero(vg > 0))
+            bb = gt["bbox"]
+            x0, x1 = bb[0] - bb[2], bb[0] + bb[2] * 2
+            y0, y1 = bb[1] - bb[3], bb[1] + bb[3] * 2
+            for i, dt in enumerate(dts):
+                d = np.asarray(dt["keypoints"], np.float64)
+                xd, yd = d[0::3], d[1::3]
+                if k1 > 0:
+                    dx, dy = xd - xg, yd - yg
+                else:
+                    z = np.zeros(k)
+                    dx = np.maximum(z, x0 - xd) + np.maximum(z, xd - x1)
+                    dy = np.maximum(z, y0 - yd) + np.maximum(z, yd - y1)
+                e = (dx**2 + dy**2) / var / (gt["area"] + np.spacing(1)) / 2
+                if k1 > 0:
+                    e = e[vg > 0]
+                ious[i, j] = np.sum(np.exp(-e)) / e.shape[0]
+        return ious
 
     def evaluate_img(self, img_id, cat_id, area_rng, ious):
         """Greedy per-image matching (COCOeval.evaluateImg semantics)."""
@@ -272,9 +338,25 @@ class COCOEval:
 
     def summarize(self) -> np.ndarray:
         """The repo's 19-stat summary: the standard 12 stats, AR@.5, then
-        per-area AP@.5 and AR@.5 (``STAT_NAMES``)."""
+        per-area AP@.5 and AR@.5 (``STAT_NAMES``); for keypoints the
+        standard 10 stats at maxDets 20 (``KPT_STAT_NAMES``)."""
         s = self._summary
         md = self.max_dets
+        if self.iou_type == "keypoints":
+            m = md[-1]
+            self.stats = np.array([
+                s(True, max_dets=m),
+                s(True, 0.5, max_dets=m),
+                s(True, 0.75, max_dets=m),
+                s(True, area="medium", max_dets=m),
+                s(True, area="large", max_dets=m),
+                s(False, max_dets=m),
+                s(False, 0.5, max_dets=m),
+                s(False, 0.75, max_dets=m),
+                s(False, area="medium", max_dets=m),
+                s(False, area="large", max_dets=m),
+            ])
+            return self.stats
         self.stats = np.array(
             [
                 s(True),

@@ -1,10 +1,10 @@
 """Minimal COCO annotation index (the parts of pycocotools.coco.COCO that
-bbox evaluation needs).
+evaluation needs).
 
 Copy of ``detectinblur_tpu/eval/coco_index.py``: image, annotation and
 category indexes, ``get_ann_ids`` / ``load_anns`` lookups, and
-``load_res`` for bbox results. Segmentation and keypoint results raise
-``NotImplementedError``: the port has no RLE or OKS evaluation yet.
+``load_res`` for bbox, segmentation (RLE) and keypoint results. Mask RLE
+ops live in ``eval/rle.py``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ import json
 from collections import defaultdict
 from typing import Any, Dict, Iterable, List, Optional
 
+import numpy as np
+
+from detectinblur_tpu_torch.eval import rle as rle_mod
 
 class COCOIndex:
     def __init__(self, annotations: Optional[dict | str] = None):
@@ -54,21 +57,32 @@ class COCOIndex:
         return [self.anns[i] for i in ids]
 
     def load_res(self, results: List[dict]) -> "COCOIndex":
-        """A results index from bbox detection dicts ({image_id,
-        category_id, bbox (xywh), score}), with area and ids assigned
-        (pycocotools loadRes semantics for bbox results)."""
+        """A results index from detection dicts ({image_id, category_id,
+        score} with a bbox (xywh), an RLE segmentation or keypoints), with
+        ids assigned and, where missing, the area: the box's, else the
+        RLE's, and then the RLE's box; a keypoint result without a box gets
+        its keypoints' tight box and that box's area (pycocotools
+        loadRes)."""
         res = COCOIndex()
         res.dataset["images"] = [copy.deepcopy(i) for i in self.dataset["images"]]
         res.dataset["categories"] = copy.deepcopy(self.dataset.get("categories", []))
         anns = copy.deepcopy(results)
         for idx, a in enumerate(anns):
-            for kind in ("segmentation", "keypoints"):
-                if kind in a:
-                    raise NotImplementedError(
-                        f"{kind} results: only bbox evaluation is ported")
-            if "area" not in a:
+            if "bbox" in a and "area" not in a:
                 bb = a["bbox"]
                 a["area"] = bb[2] * bb[3]
+            if "segmentation" in a and "area" not in a:
+                a["area"] = float(rle_mod.area(a["segmentation"]))
+                # JAX leaves the box out, and its matching then fails on
+                # the missing key (ROADMAP, Queue 3).
+                a.setdefault("bbox", rle_mod.toBbox(a["segmentation"]).tolist())
+            if "keypoints" in a and "bbox" not in a:
+                kp = np.asarray(a["keypoints"], np.float64)
+                xs, ys = kp[0::3], kp[1::3]
+                x0, x1 = float(xs.min()), float(xs.max())
+                y0, y1 = float(ys.min()), float(ys.max())
+                a["area"] = (x1 - x0) * (y1 - y0)
+                a["bbox"] = [x0, y0, x1 - x0, y1 - y0]
             a.setdefault("iscrowd", 0)
             a["id"] = idx + 1
         res.dataset["annotations"] = anns

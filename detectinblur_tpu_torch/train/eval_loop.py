@@ -5,7 +5,8 @@ the reference's engine.evaluate (engine.py:220-416), device-side blur and
 box expansion in the step, the optional expanded-GT rewrite of the GT
 annotations (positional against img_to_anns, as the reference does),
 detections collected as COCO results, merged across processes, then
-accumulate and the 19-stat summary.
+accumulate and the 19-stat summary; with ``image_output_dir``, the first
+50 iterations' first image with its boxes drawn.
 
 The cross-process merge gathers each process's payload with
 ``torch.distributed.all_gather_object`` and keeps each image's payloads
@@ -27,6 +28,7 @@ from detectinblur_tpu_torch.eval.coco_eval import COCOEval, STAT_NAMES
 from detectinblur_tpu_torch.eval.coco_index import COCOIndex
 from detectinblur_tpu_torch.parallel.dist import process_count, process_index
 from detectinblur_tpu_torch.utils.metric_logger import MetricLogger
+from detectinblur_tpu_torch.utils.visualization import dump_detections
 
 
 def dataset_to_coco_index(dataset) -> COCOIndex:
@@ -154,6 +156,7 @@ def evaluate_coco(
     print_freq: int = 100,
     early_stop: Optional[int] = None,
     header: str = "Test:",
+    image_output_dir: Optional[str] = None,
     seed: int = 1337,
 ) -> Tuple[np.ndarray, Dict]:
     """Run the loop; returns the 19-stat vector (``STAT_NAMES``, AP first)
@@ -169,7 +172,12 @@ def evaluate_coco(
     second; on CUDA (``null`` elsewhere) the wall ms per image of the
     steps, between CUDA events around each step (the steps wait on the
     host, so this is not the device's busy time), and the share of the
-    wall clock spent outside the steps (loader, detection collection)."""
+    wall clock spent outside the steps (loader, detection collection).
+
+    With ``image_output_dir`` the first image of each of the first 50
+    iterations is written there with its detections drawn
+    (``utils/visualization.py``), as JAX's loop does: the batch's source
+    canvas, that is the image before blur, padded to its source bucket."""
     results: List[dict] = []
     evaluated_ids: List[int] = []
     expanded_records: List[tuple] = []
@@ -199,6 +207,9 @@ def evaluate_coco(
             events.append(ev)
         evaluated_ids.extend(int(i) for i in image_ids)
         collect_detections(dets, image_ids, results)
+        if image_output_dir is not None and it < 50:
+            dump_detections(image_output_dir, int(image_ids[0]),
+                            batch.images[0].cpu().numpy(), dets)
         if expand_target_boxes:
             # Record, don't rewrite yet: the rewrite happens after the
             # cross-process merge, against the merged records.

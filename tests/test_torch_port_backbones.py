@@ -129,7 +129,15 @@ def test_vgg11_torso_matches_jax():
 
 
 # ------------------------------------------------------ predict and loss
-def _pair(arch, zero_rpn=False):
+@pytest.fixture(scope="module")
+def jax_inits():
+    """JAX's init of the tiny detector per torso, made once for the
+    module (Flax's init runs op by op, seconds for MobileNetV2); ``_pair``
+    hands out copies."""
+    return {}
+
+
+def _pair(arch, inits, zero_rpn=False):
     """(JAX model, params, bn_stats, port model) on the tiny config, 5
     classes: the heads from JAX's init (the predictor scaled x4, so that
     random weights score above the 0.05 threshold), the torso from a
@@ -141,8 +149,9 @@ def _pair(arch, zero_rpn=False):
     jmodel = jb.SingleMapFasterRCNN(jb.SingleMapConfig(
         arch, rpn=JaxRPNConfig(**RPN_KW), box=JaxBoxHeadConfig(**BOX_KW),
         **common))
-    params = jax.tree.map(np.array, jmodel.init(jax.random.key(0),
-                                                bucket=BUCKET))
+    if arch not in inits:
+        inits[arch] = jmodel.init(jax.random.key(0), bucket=BUCKET)
+    params = jax.tree.map(np.array, inits[arch])
     if arch == "mobile_net":
         params["backbone"], stats = np_tree(
             convert_mobilenet_v2_features(mobilenet_sd()))
@@ -169,14 +178,14 @@ def _pair(arch, zero_rpn=False):
     return jmodel, params, stats, model
 
 
-def test_predict_matches_jax():
+def test_predict_matches_jax(jax_inits):
     """MobileNetV2's predict on 2 images (one 80x100 in the 96x128
     bucket), the torso on running statistics: 85% of JAX's valid
     detections matched per image by label, IoU > 0.95 and score within
     2e-3 (``remedy_helpers.match``), and the running statistics left as
     they were. The resnet torso's eval forward is held by
     ``test_torso_matches_jax`` and the rest of its path by the loss."""
-    jmodel, params, stats, model = _pair("mobile_net")
+    jmodel, params, stats, model = _pair("mobile_net", jax_inits)
     images = np.random.default_rng(3).random((2, *BUCKET, 3), np.float32)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     dets = model.predict(T(images), HW, BUCKET)
@@ -200,13 +209,13 @@ def _gt(rng, B=2, G=3):
 
 
 @pytest.fixture(scope="module", params=["mobile_net", "resnet18"])
-def loss_case(request):
+def loss_case(request, jax_inits):
     """Both sides' loss, gradients and BatchNorm update on 2 images with
     3 and 2 GT boxes, JAX's key and the port fed its draws; ``grads_at``
     reruns the port's loss on other images from the same weights and
     statistics."""
     arch = request.param
-    jmodel, params, stats, model = _pair(arch, zero_rpn=True)
+    jmodel, params, stats, model = _pair(arch, jax_inits, zero_rpn=True)
     rng = np.random.default_rng(8)
     images = rng.random((2, *BUCKET, 3), np.float32)
     gt, gl, gv = _gt(rng)

@@ -21,6 +21,7 @@ from remedy_helpers import resnet18_sd
 from synthetic_coco import write_coco
 from synthetic_torch import synthetic_deepdeblur_state_dict
 from torch_reference import make_random_fasterrcnn_sd
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 import detectinblur_tpu.cli.evaluate as jax_cli_eval
 import detectinblur_tpu.cli.train_blur_estimator as jax_cli_est
@@ -40,7 +41,7 @@ import detectinblur_tpu_torch.cli.evaluate as cli_eval
 import detectinblur_tpu_torch.cli.train as cli_train
 import detectinblur_tpu_torch.cli.train_blur_estimator as cli_est
 import detectinblur_tpu_torch.data.batching as batching
-from detectinblur_tpu_torch.cli.args import EVAL_ONLY, UNPORTED, bn_mode_for
+from detectinblur_tpu_torch.cli.args import EVAL_ONLY, bn_mode_for
 from detectinblur_tpu_torch.models.classifier import ResNetClassifier
 from detectinblur_tpu_torch.models.faster_rcnn import (
     FasterRCNN,
@@ -127,17 +128,23 @@ def bank():
 
 @pytest.fixture
 def tiny(monkeypatch, bank):
-    """The tiny detector, one 96x96 bucket and the injected PSF bank, on
-    both sides."""
+    """The tiny detector (2 classes for --dataset coco_kp), one 96x96
+    bucket and the injected PSF bank, on both sides."""
+    def sized(args):
+        """TINY, with 2 classes for --dataset coco_kp."""
+        kp = getattr(args, "dataset", "coco") == "coco_kp"
+        return dict(TINY, num_classes=2) if kp else TINY
+
     def port_build(args, device):
         return FasterRCNN(FasterRCNNConfig(
-            **TINY, rpn=RPNConfig(**TINY_RPN), box=BoxHeadConfig(**TINY_BOX),
+            **sized(args), rpn=RPNConfig(**TINY_RPN),
+            box=BoxHeadConfig(**TINY_BOX),
             warp_internally=getattr(args, "warp_in_model", False),
             bn_mode=bn_mode_for(args), precision="highest"), device=device)
 
     def jax_build(args, bn_mode=None):
         return JaxFasterRCNN(JaxFasterRCNNConfig(
-            **TINY, bn_mode=bn_mode, rpn=JaxRPNConfig(**TINY_RPN),
+            **sized(args), bn_mode=bn_mode, rpn=JaxRPNConfig(**TINY_RPN),
             box=JaxBoxHeadConfig(**TINY_BOX),
             warp_internally=args.warp_in_model))
 
@@ -470,24 +477,23 @@ def test_checkpoint_round_trip_and_strict_failures(tmp_path):
 
 
 # ------------------------------------------------------- flags and device
-REFUSED = [[f"--{f}"] for f in UNPORTED + EVAL_ONLY
+REFUSED = [[f"--{f}"] for f in EVAL_ONLY
            if f not in ("deblurer_model_location", "ensemble_model_paths",
                         "blur_estimator_path", "image_output_dir",
                         "blurred_dataset")]
 REFUSED += [["--deblurer_model_location", "d.pth"],
             ["--ensemble_model_paths", "a", "b", "c", "d"],
             ["--blur_estimator_path", "e"], ["--image_output_dir", "o"],
-            ["--blurred_dataset", "GOPRO"], ["--dataset", "coco_kp"],
-            ["--world-size", "2"]]
+            ["--blurred_dataset", "GOPRO"], ["--world-size", "2"]]
 
 
 @pytest.mark.parametrize("flag", REFUSED, ids=lambda f: f[0])
 def test_unported_flag_raises(flag, tmp_path):
     """Each flag the port does not have yet raises NotImplementedError
     naming it, in both CLIs, before any work starts. The flags of
-    deblur-first, of the ensemble and of the natural-blur datasets
-    (``EVAL_ONLY``) are ported in ``cli.evaluate``; ``cli.train``, which
-    never reads them, still raises."""
+    deblur-first, of the ensemble, of the natural-blur datasets and
+    ``--image_output_dir`` (``EVAL_ONLY``) are ported in ``cli.evaluate``;
+    ``cli.train``, which never reads them, still raises."""
     name = flag[0]
     for mod in (cli_eval, cli_train):
         if name in ("--dilate_psf", "--mode_one_norm") and mod is cli_train:

@@ -19,6 +19,7 @@ import torch
 
 from remedy_helpers import np_tree, resnet18_sd
 from synthetic_gopro import write_gopro
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 from torso_weights import mobilenet_sd
 from test_torch_port_cli import SIZES, bank, coco_root  # noqa: F401
 

@@ -460,3 +460,45 @@ def test_single_level_kernels_match_plain(rng, cuda, dtype, channels):
     grad = roi_align_cuda.roi_align_bwd(dout, geom, R, [shape])[0]
     assert (grad - gref).abs().max().item() <= 1e-5 * gref.abs().max().item()
     assert f.grad.dtype == dt and f.grad.shape == feat.shape
+
+
+@pytest.mark.gpu
+def test_profiling_on_the_card(rng, cuda, tmp_path):
+    """``utils/profiling.py`` on CUDA: ``step_timer`` waits for the card,
+    ``device_memory_stats`` reads the allocator and the card's memory,
+    and ``trace`` records the hand-written RoIAlign forward kernel,
+    launched through ctypes, by name."""
+    import json
+
+    from detectinblur_tpu_torch.utils.profiling import (
+        device_memory_stats,
+        step_timer,
+        trace,
+    )
+
+    feats, boxes = _inputs(rng)
+    feats = [torch.from_numpy(f).to(cuda) for f in feats]
+    boxes = torch.from_numpy(boxes).to(cuda)
+    multiscale_roi_align_cuda = roi_align_cuda.multiscale_roi_align_cuda
+    multiscale_roi_align_cuda(feats, boxes)          # build, warm up
+    a = torch.randn(4096, 4096, device=cuda)
+    with step_timer(sync=cuda) as t:
+        for _ in range(20):
+            a = a @ a / 64.0
+    # 20 products of 2 x 4096^3 operations take milliseconds on any card;
+    # timed without the wait, the block returns in microseconds.
+    assert t.seconds > 1e-3
+    torch.cuda.reset_peak_memory_stats(cuda)
+    stats = device_memory_stats(cuda)
+    assert set(stats) == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+    assert 0 < stats["bytes_in_use"] <= stats["peak_bytes_in_use"]
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(
+        cuda).total_memory
+    assert device_memory_stats() == device_memory_stats(cuda)
+    with trace(str(tmp_path / "trace")):
+        out = multiscale_roi_align_cuda(feats, boxes)
+        torch.cuda.synchronize()
+    assert out.shape[:2] == boxes.shape[:2]
+    events = json.load(open(tmp_path / "trace" / "trace.json"))["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("roi_align_fwd_kernel" in k for k in kernels), kernels[:20]

@@ -15,6 +15,7 @@ from synthetic_coco import write_coco
 from detectinblur_tpu.data import batching as jax_batching
 from detectinblur_tpu.data import blur_sampling as jax_bs
 from detectinblur_tpu.data import loader as jax_loader
+from detectinblur_tpu.data.coco import CocoDetection as JaxCocoDetection
 from detectinblur_tpu.data.coco import get_coco as jax_get_coco
 from detectinblur_tpu_torch.data import batching, blur_sampling as bs, loader
 from detectinblur_tpu_torch.data.coco import CocoDetection, get_coco
@@ -231,10 +232,20 @@ def test_coco_items_match_jax(coco_root, split):
 
 
 def test_coco_masks_and_keypoints_raise(coco_root):
+    """The synthetic instances carry no segmentation: with masks, the
+    items raise KeyError in both packages; with keypoints, which they do
+    not carry either, each item has [N, 0, 3] keypoints, as JAX's."""
+    folder = os.path.join(coco_root, "val2017")
     ann = os.path.join(coco_root, "annotations", "instances_val2017.json")
-    for kw in ("with_masks", "with_keypoints"):
-        with pytest.raises(NotImplementedError, match=kw):
-            CocoDetection(coco_root, ann, **{kw: True})
+    for cls in (CocoDetection, JaxCocoDetection):
+        with pytest.raises(KeyError, match="segmentation"):
+            cls(folder, ann, with_masks=True)[0]
+    ours = CocoDetection(folder, ann, with_keypoints=True)
+    ref = JaxCocoDetection(folder, ann, with_keypoints=True)
+    for i in range(len(ours)):
+        o, r = ours[i]["keypoints"], ref[i]["keypoints"]
+        assert o.dtype == r.dtype and o.shape == (len(ours[i]["boxes"]), 0, 3)
+        np.testing.assert_array_equal(o, r)
 
 
 LOADER_CASES = [(w, p, d) for w in (0, 2) for p in (1, 2) for d in (True, False)]

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from synthetic_torch import synthetic_deepdeblur_state_dict
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from detectinblur_tpu.models import deblur as jax_deblur
 from detectinblur_tpu.train import engine as jax_engine

@@ -12,6 +12,7 @@ import torch
 
 from remedy_helpers import BOX_KW, RPN_KW, match, psfs, resnet18_sd, weights
 from synthetic_torch import synthetic_deepdeblur_state_dict
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from detectinblur_tpu.models import ensemble as jax_ens
 from detectinblur_tpu.models.classifier import (

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from remedy_helpers import jax_corruption_draws, np_tree, resnet18_sd
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from detectinblur_tpu.models import classifier as jax_cls
 from detectinblur_tpu.models import detection_transform as jax_dt

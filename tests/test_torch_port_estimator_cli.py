@@ -12,6 +12,7 @@ import torch
 
 from remedy_helpers import resnet18_sd
 from test_torch_port_cli import SIZES, bank, coco_root, tiny  # noqa: F401
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 import detectinblur_tpu.cli.train_blur_estimator as jax_cli_est
 import detectinblur_tpu.utils.torch_convert as jax_torch_convert

@@ -17,6 +17,7 @@ import torch
 
 from synthetic_coco import write_coco
 from torch_reference import make_random_fasterrcnn_sd
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 import detectinblur_tpu.data.batching as jax_batching
 from detectinblur_tpu.data import blur_sampling as jax_bs
@@ -125,15 +126,20 @@ def test_coco_eval_of_the_gt_itself_is_perfect():
 
 
 def test_segm_and_keypoints_raise():
-    gt = COCOIndex({"images": [{"id": 1}], "annotations": [],
-                    "categories": [{"id": 1}]})
-    for kind in ("segm", "keypoints"):
-        with pytest.raises(NotImplementedError, match=kind):
-            COCOEval(gt, gt, kind)
-    for key in ("segmentation", "keypoints"):
-        with pytest.raises(NotImplementedError, match=key):
-            gt.load_res([{"image_id": 1, "category_id": 1, key: [1, 2, 3],
+    """Segmentation and keypoint results the index cannot read raise as
+    JAX's do: a segmentation that is not an RLE (TypeError), a keypoint
+    result with no keypoint (ValueError); so does an unknown iou type."""
+    for index_cls in (COCOIndex, JaxCOCOIndex):
+        gt = index_cls({"images": [{"id": 1}], "annotations": [],
+                        "categories": [{"id": 1}]})
+        with pytest.raises(TypeError):
+            gt.load_res([{"image_id": 1, "category_id": 1,
+                          "segmentation": [1, 2, 3], "score": 1.0}])
+        with pytest.raises(ValueError):
+            gt.load_res([{"image_id": 1, "category_id": 1, "keypoints": [],
                           "score": 1.0}])
+    with pytest.raises(ValueError, match="boxes"):
+        COCOEval(gt, gt, "boxes")
 
 
 def test_coco_index_lookups_match_jax():

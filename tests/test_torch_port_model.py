@@ -18,6 +18,7 @@ import torch
 
 from synthetic_torch import synthetic_fasterrcnn_state_dict
 from torch_reference import make_random_fasterrcnn_sd
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from detectinblur_tpu.models.detection_transform import (
     preprocess_batch as jax_preprocess,

@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
+
 from detectinblur_tpu.data.batching import model_bucket_for_batch as jax_bucket
 from detectinblur_tpu.models import anchors as jax_anchors
 from detectinblur_tpu.ops import blur as jax_blur

@@ -27,6 +27,7 @@ import torch
 from remedy_helpers import T, jax_corruption_draws, np_tree, psfs, weights
 from synthetic_coco import write_coco
 from torch_reference import make_random_fasterrcnn_sd
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from detectinblur_tpu.data import batching as jax_batching
 from detectinblur_tpu.data import loader as jax_loader

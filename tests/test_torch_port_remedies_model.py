@@ -23,6 +23,7 @@ from remedy_helpers import (
     warp_inputs,
     weights,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from detectinblur_tpu.utils.torch_convert import convert_fasterrcnn_state_dict
 from detectinblur_tpu_torch.utils.convert import params_from_jax

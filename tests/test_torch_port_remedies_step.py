@@ -26,6 +26,7 @@ from remedy_helpers import (
     psfs,
     weights,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from detectinblur_tpu.train import engine as jax_engine
 from detectinblur_tpu.train import state as jax_state

@@ -10,6 +10,8 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
+
 from detectinblur_tpu.ops.roi_align import _assign_levels
 from detectinblur_tpu.ops.roi_align import multiscale_roi_align as jax_roi_align
 from detectinblur_tpu.ops.roi_align_pallas import pallas_multiscale_roi_align

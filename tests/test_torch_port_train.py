@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from torch_reference import make_random_fasterrcnn_sd
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from detectinblur_tpu.models import roi_heads as jax_roi_heads
 from detectinblur_tpu.models import rpn as jax_rpn
