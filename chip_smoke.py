@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, training, entry-point, remedy,
 deblur-first, blur-estimator, ensemble, single-map detector,
-natural-blur, person-keypoint and PSF-bank paths on one CUDA card.
+natural-blur, person-keypoint, PSF-bank and data-parallel paths on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -138,6 +139,29 @@ Phases (any failure exits non-zero and prints no result):
      ``utils/profiling.step_timer``, its ``device_memory_stats``, and the
      step under ``trace``, whose file must name the RoIAlign forward
      kernel.
+
+ 13. Data parallel (the port's DDP), on the one card. (a) Phase 8's
+     ``cli.train`` in the launcher's environment at world size 1: an NCCL
+     group, three steps through DDP, both kernels launched and held on
+     their inputs, phase 8's first losses within 1e-4 relative, the group
+     destroyed and a checkpoint that restores without one; then phase
+     5's train step (B=8, ``default``) in DDP beside the plain step, in
+     turns (img/s). (b) Two spawned ranks on ``cuda:0`` over gloo: the
+     full-width step in ``highest`` (RPN prediction layers zeroed, so
+     that both runs sample the same rois) on 4 + 4 images with per-image
+     draws made here, against this process's step on all 8: losses
+     within 1e-4, each update within 2e-3 of its tensor's largest, the
+     ranks bit-identical; again with train-mode BatchNorm and the warp and
+     norms, its running statistics within 1e-4 and its updates within 3x
+     the one-process step's own spread under a 1e-6 nudge of the images;
+     each kernel held on each rank's inputs; the rank's step ms and one
+     all-reduce of the gradients' size (two ranks share one card: not a
+     scaling number); then ``cli.evaluate --device cuda:0`` at W=2 on
+     phase 8's COCO and checkpoint: phase 8's 19 stats exactly, 16
+     forward launches over both ranks. (c) ``python -m
+     torch.distributed.run --standalone --nproc_per_node 1 -m
+     detectinblur_tpu_torch.cli.train ... --early_stop 1``: exit 0, an
+     NCCL group, ``model_0.pt``.
 
 The last two lines are a JSON object describing each kernel (its
 ``launches`` summed over the counted runs of every path, one count per
@@ -444,6 +468,24 @@ def _capture_roi_align(fwd, bwd):
         fn.forward, fn.backward = staticmethod(forward), staticmethod(backward)
 
 
+def _step_img_s(step, state, batch, gen, windows=5, iters=4):
+    """A train step's throughput: windows of ``iters`` steps timed with
+    CUDA events, the lower median of their img/s. Returns (img/s, each
+    window's img/s, the state after)."""
+    rates = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            state, _ = step(state, batch, generator=gen)
+        end.record()
+        torch.cuda.synchronize()
+        rates.append(batch.images.shape[0] * iters
+                     / (start.elapsed_time(end) / 1e3))
+    return sorted(rates)[(windows - 1) // 2], rates, state
+
+
 def run_train(gen):
     """The training step with bench_train.py's protocol. Returns (launches
     per kernel in the counted step, the levels the step's RoIAlign forward
@@ -507,20 +549,8 @@ def run_train(gen):
         sys.exit(f"moved != trainable: {sorted(moved ^ trainable)[:5]}")
     del before
 
-    # Throughput: windows of device time, lower median.
     torch.cuda.reset_peak_memory_stats()
-    windows, iters = 5, 4
-    rates = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            state, _ = step(state, batch, generator=gen)
-        end.record()
-        torch.cuda.synchronize()
-        rates.append(B * iters / (start.elapsed_time(end) / 1e3))
-    img_s = sorted(rates)[(windows - 1) // 2]
+    img_s, rates, state = _step_img_s(step, state, batch, gen)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # Per stage: the step's own calls, CUDA events between them.
@@ -1003,13 +1033,38 @@ def profile_eval(argv, loops):
             for e in top]}
 
 
+def _phase8_files(tmp):
+    """Phase 8's synthetic COCO and random torchvision-layout ``.pth`` in
+    ``tmp``, made from their seeds (the same files on every call)."""
+    from torch_reference import make_random_fasterrcnn_sd
+
+    root = _write_coco(str(Path(tmp) / "coco"))
+    pth = str(Path(tmp) / "random_torchvision.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                make_random_fasterrcnn_sd(np.random.default_rng(0)).items()},
+               pth)
+    return root, pth
+
+
+def _phase8_train_argv(root, out, pth):
+    """Phase 8's ``cli.train``: blurred, expanded GT, batch 2, 3 steps,
+    eval before and after. lr 1e-5: after 3 steps the random model still
+    scores boxes above the 0.05 threshold (at 2.5e-3 it scored none), so
+    every eval has detections to score."""
+    return ["--data-path", root, "--blur_train", "--expand_target_boxes",
+            "-b", "2", "--epochs", "1", "--early_stop", "3",
+            "--output_dir", out, "--eval_first", "--print-freq", "1",
+            "--lr", "1e-5", "--start_from_weights", pth]
+
+
 def run_entry_points(keep):
     """Phase 8: cli.train, then cli.evaluate clean and as a blur sweep, on
     a synthetic COCO, each kernel held against its plain version on the
     inputs each CLI handed it; then the clean eval again under the
     profiler and on the CPU. Copies cli.train's ``model_0.pt`` into
-    ``keep`` (phase 10's first specialist). Returns the launches of each
-    kernel per CLI."""
+    ``keep`` (phase 10's first specialist, phase 13's checkpoint).
+    Returns the launches of each kernel per CLI, and ``cli.train``'s first
+    losses and the clean eval's stats (phase 13 holds its runs to them)."""
     import shutil
 
     import tempfile
@@ -1038,25 +1093,13 @@ def run_entry_points(keep):
     cli_train.evaluate_coco = cli_eval.evaluate_coco = recorded_eval
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
-        from torch_reference import make_random_fasterrcnn_sd
-
-        root = _write_coco(str(Path(tmp) / "coco"))
+        root, pth = _phase8_files(tmp)
         out = str(Path(tmp) / "out")
-        pth = str(Path(tmp) / "random_torchvision.pth")
-        torch.save({k: torch.from_numpy(v) for k, v in
-                    make_random_fasterrcnn_sd(np.random.default_rng(0)).items()},
-                   pth)
-        # lr 1e-5: after 3 steps the random model still scores boxes above
-        # the 0.05 threshold (at 2.5e-3 it scored none), so every eval has
-        # detections to score.
         fwd, bwd = {}, {}
         t0 = time.perf_counter()
         with _capture_roi_align(fwd, bwd):
-            run, train_launches = _counted(lambda: cli_train.main([
-                "--data-path", root, "--blur_train", "--expand_target_boxes",
-                "-b", "2", "--epochs", "1", "--early_stop", "3",
-                "--output_dir", out, "--eval_first", "--print-freq", "1",
-                "--lr", "1e-5", "--start_from_weights", pth]))
+            run, train_launches = _counted(lambda: cli_train.main(
+                _phase8_train_argv(root, out, pth)))
         print(f"cli.train: {time.perf_counter() - t0:.2f} s, launches "
               f"{train_launches}, losses " + json.dumps(run.losses))
         if min(train_launches.values()) == 0:
@@ -1074,6 +1117,7 @@ def run_entry_points(keep):
                 cli_train.train_parser().parse_args([]), "cuda")):
             sys.exit("restore_checkpoint did not give the state back bit for bit")
         shutil.copy(ckpt, keep / ckpt.name)
+        first_losses = run.losses[0]
         del run
 
         eval_launches = {"roi_align_fwd": 0, "roi_align_bwd": 0}
@@ -1144,7 +1188,8 @@ def run_entry_points(keep):
             profiled["device_busy_share_of_steps"],
         "model_buckets": sorted(buckets), "psf_banks": banks,
         "peak_mem_gib": peak}))
-    return {"cli_train": train_launches, "cli_evaluate": eval_launches}
+    return ({"cli_train": train_launches, "cli_evaluate": eval_launches},
+            {"first_losses": first_losses, "clean_stats": clean_stats})
 
 
 # ----------------------------------------------------------- remedies
@@ -1619,17 +1664,12 @@ def run_remedy_entry_points():
         create_train_state,
         make_optimizer,
     )
-    from torch_reference import make_random_fasterrcnn_sd
 
     flags = ["--warp_in_model", "--use_custom_image_norm", "--add_noise",
              "--add_block", "--add_jpeg_artefacts"]
     with tempfile.TemporaryDirectory() as tmp:
-        root = _write_coco(str(Path(tmp) / "coco"))
+        root, pth = _phase8_files(tmp)
         out = str(Path(tmp) / "out")
-        pth = str(Path(tmp) / "random_torchvision.pth")
-        torch.save({k: torch.from_numpy(v) for k, v in
-                    make_random_fasterrcnn_sd(np.random.default_rng(0)).items()},
-                   pth)
         fwd, bwd = {}, {}
         t0 = time.perf_counter()
         with _capture_roi_align(fwd, bwd):
@@ -2822,6 +2862,501 @@ def run_keypoint_entry_points():
     return launches, out
 
 
+# ------------------------------------------------------ data parallel
+DP_NOTE = "two ranks share one card; not a scaling number"
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _launcher_env(world=1, rank=0):
+    """The environment ``torchrun`` gives a process (rank, count, local
+    rank, rendezvous on this host) while open."""
+    import os
+
+    env = dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
+@contextlib.contextmanager
+def _recording_ddp(backends, forwards):
+    """While open, the backend of each ``init_process_group`` goes into
+    ``backends`` and each DDP forward adds one to ``forwards[0]``."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel as DDP
+
+    init, forward = dist.init_process_group, DDP.forward
+
+    def recording_init(*args, **kwargs):
+        backends.append(kwargs.get("backend", args[0] if args else None))
+        return init(*args, **kwargs)
+
+    def counting_forward(self, *args, **kwargs):
+        forwards[0] += 1
+        return forward(self, *args, **kwargs)
+
+    dist.init_process_group, DDP.forward = recording_init, counting_forward
+    try:
+        yield
+    finally:
+        dist.init_process_group, DDP.forward = init, forward
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def run_ddp_nccl_w1(phase8):
+    """Phase 13a: phase 8's ``cli.train`` in the launcher's environment at
+    world size 1: it must make an NCCL group, train through DDP (3
+    forwards), launch both kernels (each held on its inputs), give phase
+    8's first losses within 1e-4 relative, destroy its group and write a
+    checkpoint that restores without one. Returns the launches."""
+    import torch.distributed as dist
+
+    import detectinblur_tpu_torch.cli.train as cli_train
+
+    backends, forwards = [], [0]
+    with tempfile.TemporaryDirectory() as tmp:
+        root, pth = _phase8_files(tmp)
+        out = str(Path(tmp) / "out")
+        fwd, bwd = {}, {}
+        t0 = time.perf_counter()
+        with _launcher_env(), _recording_ddp(backends, forwards), \
+                _capture_roi_align(fwd, bwd):
+            run, launches = _counted(lambda: cli_train.main(
+                _phase8_train_argv(root, out, pth)))
+        first = run.losses[0]
+        errs = {k: _rel(v, phase8["first_losses"][k]) for k, v in first.items()}
+        print(f"NCCL W=1 cli.train: {time.perf_counter() - t0:.2f} s, "
+              f"backends {backends}, DDP forwards {forwards[0]}, launches "
+              f"{launches}, first losses {json.dumps(first)} against phase "
+              f"8's: max relative difference {max(errs.values()):.3g}, "
+              "tolerance 1e-4")
+        if backends != ["nccl"] or forwards[0] != 3 or dist.is_initialized():
+            sys.exit("NCCL W=1 cli.train: no NCCL group, no DDP step, or a "
+                     "group left behind")
+        if min(launches.values()) == 0 or max(errs.values()) > 1e-4:
+            sys.exit("NCCL W=1 cli.train: a kernel not launched, or losses "
+                     "away from the one-process run's")
+        check_captured("ddp_nccl_w1_cli_train", fwd, bwd)
+        if not _same_checkpoint(Path(out) / "model_0.pt", run,
+                                cli_train.build_model(
+                                    cli_train.train_parser().parse_args([]),
+                                    "cuda")):
+            sys.exit("NCCL W=1 checkpoint: not restored bit for bit")
+    return launches
+
+
+def time_ddp_w1_step(gen):
+    """Phase 13a: phase 5's train step (B=8, ``default``, from scratch)
+    made in an NCCL group of one, so it runs in DDP (bucketing and one
+    all-reduce of the gradients), against the same step made before the
+    group, in turns: plain, DDP, DDP, plain. Returns (DDP img/s, plain
+    img/s, the DDP step's launches)."""
+    import torch.distributed as dist
+
+    from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
+    from detectinblur_tpu_torch.models.faster_rcnn import (
+        FasterRCNN,
+        FasterRCNNConfig,
+    )
+    from detectinblur_tpu_torch.train.engine import make_train_step
+    from detectinblur_tpu_torch.train.state import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    bucket = model_bucket_for_batch([SRC_HW] * B)
+    batch = _train_batch(gen)
+
+    def made():
+        model = FasterRCNN(FasterRCNNConfig(precision="default"),
+                           device="cuda")
+        opt, schedule = make_optimizer(model, base_lr=0.04,
+                                       steps_per_epoch=1000)
+        step = make_train_step(model, schedule, bucket, blur_train=True,
+                               expand_target_boxes=True)
+        return step, create_train_state(model, opt)
+
+    plain = made()
+    with _launcher_env():
+        dist.init_process_group("nccl", init_method="env://", world_size=1,
+                                rank=0)
+        try:
+            ddp = made()
+            runs = {"plain": [], "ddp": []}
+            states = {"plain": plain[1], "ddp": ddp[1]}
+            steps = {"plain": plain[0], "ddp": ddp[0]}
+            for name in ("plain", "ddp"):
+                states[name], _ = steps[name](states[name], batch,
+                                              generator=gen)
+            _, launches = _counted(lambda: steps["ddp"](
+                states["ddp"], batch, generator=gen))
+            for name in ("plain", "ddp", "ddp", "plain"):
+                img_s, _, states[name] = _step_img_s(steps[name],
+                                                     states[name], batch, gen)
+                runs[name].append(img_s)
+        finally:
+            dist.destroy_process_group()
+    ddp_img_s, plain_img_s = (float(np.mean(runs[k])) for k in ("ddp", "plain"))
+    print(f"train step B={B} in DDP (NCCL, W=1): {runs['ddp']} img/s, plain "
+          f"{runs['plain']} img/s, launches {launches}")
+    if min(launches.values()) == 0:
+        sys.exit("the DDP train step did not launch every kernel")
+    return ddp_img_s, plain_img_s, launches
+
+
+DP_CASES = {
+    # name -> (config, step flags, batch): phase 5's step, and the remedy
+    # step with train-mode BatchNorm and the deterministic remedies.
+    "frozen": (dict(), dict(blur_train=True, expand_target_boxes=True)),
+    "bn": (dict(bn_mode="train"),
+           dict(blur_train=True, expand_target_boxes=True, use_warp=True,
+                use_custom_norm=True)),
+}
+
+
+def _dp_model(config, device="cuda"):
+    """The full-width detector from seed 0 in ``highest``, its RPN
+    prediction layers zeroed, so that every anchor's objectness is its
+    type's bias and proposals sit at the anchors in any batch: float noise
+    between the one-process and the two-rank runs cannot change which
+    rois are sampled (tests/test_torch_port_train.py's ``loss_case``)."""
+    from detectinblur_tpu_torch.models.faster_rcnn import (
+        FasterRCNN,
+        FasterRCNNConfig,
+    )
+
+    model = FasterRCNN(FasterRCNNConfig(precision="highest", **config),
+                       device=device)
+    with torch.no_grad():
+        for layer in (model.rpn_head.cls_logits, model.rpn_head.bbox_pred):
+            layer.weight.zero_()
+        model.rpn_head.bbox_pred.bias.zero_()
+    return model
+
+
+def _dp_step(name, rows=slice(None), inputs=None, device="cuda"):
+    """One step of case ``name`` on ``inputs`` (the batch and loss draws
+    on the host), rows ``rows``, on a fresh model on ``device``. Returns
+    (model, metrics, a function that runs one more step)."""
+    from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
+    from detectinblur_tpu_torch.models.faster_rcnn import LossDraws
+    from detectinblur_tpu_torch.train.engine import make_train_step, to_device
+    from detectinblur_tpu_torch.train.state import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    config, flags = DP_CASES[name]
+    batch, draws = inputs
+    model = _dp_model(config, device)
+    opt, schedule = make_optimizer(model, base_lr=0.02, steps_per_epoch=1)
+    step = make_train_step(model, schedule,
+                           model_bucket_for_batch([SRC_HW] * B), **flags)
+    part = to_device(type(batch)(*(t if t is None or t.dim() == 0 else t[rows]
+                                   for t in batch)), device)
+    d = LossDraws(*(tuple(u[rows].to(device) for u in pair)
+                    for pair in draws))
+    state = [create_train_state(model, opt)]
+
+    def again():
+        state[0], metrics = step(state[0], part, draws=d)
+        return metrics
+
+    return model, {k: v.item() for k, v in again().items()}, again
+
+
+def _dp_inputs(gen):
+    """Phase 9's remedy batch (phase 5's, with its PSFs' blur indices for
+    the norms) and per-image loss draws, on the host."""
+    from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
+
+    batch = _remedy_batch(gen)
+    H, W = model_bucket_for_batch([SRC_HW] * B)
+    A = 3 * sum((H // s) * (W // s) for s in (4, 8, 16, 32))
+    A += 3 * ((H // 32 + 1) // 2) * ((W // 32 + 1) // 2)
+    g = torch.Generator().manual_seed(13)
+    u = lambda n: torch.rand(B, n, generator=g)
+    draws = ((u(A), u(A)), (u(2000 + TRAIN_G), u(2000 + TRAIN_G)))
+    host = type(batch)(*(None if t is None else t.cpu() for t in batch))
+    return host, draws
+
+
+def _dp_rank(rank, port, inputs, paths, out_dir, argv, queue):
+    """One of phase 13b's two ranks, spawned: a gloo group, both ranks on
+    ``cuda:0`` (an explicit ``cuda:K`` is kept under a group),
+    each case's step on this rank's rows (counted, each kernel held on its
+    inputs, rank 0's state saved), the step and an all-reduce of the
+    gradients' size timed, then ``cli.evaluate`` at W=2 (``argv``, its
+    launches counted and each kernel held). Puts (rank, ok, result)."""
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        sys.path[:0] = paths
+        import detectinblur_tpu_torch.cli.evaluate as cli_eval
+
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank)
+        try:
+            got = {}
+            rows = slice(rank * B // 2, (rank + 1) * B // 2)
+            for name in DP_CASES:
+                fwd, bwd = {}, {}
+                with _capture_roi_align(fwd, bwd):
+                    (model, metrics, again), launches = _counted(
+                        lambda: _dp_step(name, rows, inputs, "cuda:0"))
+                check_captured(f"ddp_gloo_w2 {name} rank {rank}", fwd, bwd)
+                sd = {k: v.cpu() for k, v in model.state_dict().items()}
+                if rank == 0:
+                    torch.save(sd, Path(out_dir) / f"{name}.pt")
+                no_grad = [n for n, p in model.named_parameters()
+                           if p.requires_grad and p.grad is None]
+                got[name] = dict(metrics=metrics, launches=launches,
+                                 no_grad=no_grad, digest=_digest(sd))
+                if name == "frozen":
+                    got["step_ms"], got["allreduce_ms"] = _time_dp_rank(
+                        model, again)
+                del model, again, sd, fwd, bwd
+                torch.cuda.empty_cache()
+            fwd = {}
+            t0 = time.perf_counter()
+            with _capture_roi_align(fwd, {}):
+                stats, launches = _counted(lambda: cli_eval.main(argv))
+            got["eval"] = dict(stats=np.asarray(stats), launches=launches,
+                               wall_s=time.perf_counter() - t0)
+            check_captured(f"ddp_gloo_w2 cli.evaluate rank {rank}", fwd, {})
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, True, got))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+
+
+def _digest(sd):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sd.items():
+        h.update(k.encode())
+        h.update(v.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _time_dp_rank(model, again):
+    """This rank's step, three more after the compared one (host clock
+    around each, after a sync), and one gloo all-reduce of a float32
+    tensor the size of the trainable parameters (mean of 3)."""
+    import torch.distributed as dist
+
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    n = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    flat = torch.zeros(n, device="cuda")
+    dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    return ms, (time.perf_counter() - t0) * 1e3 / 3
+
+
+def _update_errors(got, ref, p0, trainable):
+    """Per trainable tensor: max |update - reference update| over the
+    reference update's largest magnitude. An update that is zero in the
+    reference (a bias behind the zeroed RPN layers, an FPN level no roi
+    reads) must be zero."""
+    errs = {}
+    for k in trainable:
+        d_ref = ref[k] - p0[k]
+        scale = d_ref.abs().max().item()
+        diff = (got[k] - p0[k] - d_ref).abs().max().item()
+        errs[k] = diff / scale if scale else (float("inf") if diff else 0.0)
+    return errs
+
+
+def run_ddp_gloo_w2(gen, keep, phase8):
+    """Phase 13b: two ranks on the one card over gloo, spawned. Each
+    case's step on 4 + 4 images against this process's step on all 8:
+    losses within 1e-4 relative; each parameter's update within 2e-3 of
+    that tensor's largest (frozen), or within 3x the one-process step's
+    own spread under a 1e-6 nudge of the images, in max and median over
+    tensors (train-mode BatchNorm); the running statistics within 1e-4
+    of their magnitude, the ranks' states bit-identical, every trainable
+    parameter with a gradient. Then ``cli.evaluate`` at W=2 on phase 8's
+    COCO and checkpoint: the merged 19 stats phase 8's exactly, one
+    forward launch an image over both ranks. Returns (launches per path,
+    readings)."""
+    import multiprocessing
+
+    inputs = _dp_inputs(gen)
+    batch, draws = inputs
+    g = torch.Generator().manual_seed(14)
+    nudged = (batch._replace(images=batch.images + 1e-6 * torch.randn(
+        batch.images.shape, generator=g)), draws)
+    ref = {}
+    for name in DP_CASES:
+        p0 = {k: v.cpu() for k, v in _dp_model(DP_CASES[name][0])
+              .state_dict().items()}
+        runs = []
+        for x in (inputs, nudged) if name == "bn" else (inputs,):
+            model, metrics, _ = _dp_step(name, inputs=x)
+            runs.append(({k: v.cpu() for k, v in model.state_dict().items()},
+                         metrics))
+            trainable = {n for n, p in model.named_parameters()
+                         if p.requires_grad}
+            del model
+            torch.cuda.empty_cache()
+        ref[name] = (p0, runs, trainable)
+    here = Path(__file__).resolve().parent
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, _ = _phase8_files(tmp)
+        argv = ["--data-path", root, "--resume", str(keep / "model_0.pt"),
+                "--vanilla_eval", "--device", "cuda:0"]
+        procs = [ctx.Process(target=_dp_rank, args=(
+            r, port, inputs, [str(here), str(here / "tests")], tmp, argv,
+            queue)) for r in range(2)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            for _ in procs:
+                rank, ok, value = queue.get(timeout=600)
+                if not ok:
+                    sys.exit(f"phase 13b rank {rank} failed:\n{value}")
+                got[rank] = value
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        w2 = {name: torch.load(Path(tmp) / f"{name}.pt", weights_only=True)
+              for name in DP_CASES}
+    seconds = time.perf_counter() - t0
+    launches = {}
+    for name in DP_CASES:
+        p0, runs, trainable = ref[name]
+        (after, metrics) = runs[0]
+        r0, r1 = got[0][name], got[1][name]
+        loss_err = max(_rel(r0["metrics"][k], v) for k, v in metrics.items())
+        upd = _update_errors(w2[name], after, p0, trainable)
+        stats = [k for k in after if k.endswith(("running_mean",
+                                                 "running_var"))]
+        stat_err = max(((w2[name][k] - after[k]).abs().max()
+                        / after[k].abs().max()).item() for k in stats) \
+            if stats else 0.0
+        worst = max(upd.values())
+        median = float(np.median(list(upd.values())))
+        if name == "bn":
+            # A from-scratch model's batch statistics make the gradients
+            # chaotic: held, as phase 9 holds the card against the CPU, to
+            # 3x the one-process step's own spread under a 1e-6 nudge of
+            # the images.
+            spread = _update_errors(runs[1][0], after, p0, trainable)
+            limit = (3 * max(spread.values()),
+                     3 * float(np.median(list(spread.values()))))
+        else:
+            limit = (2e-3, 2e-3)
+        same = r0["digest"] == r1["digest"] == _digest(w2[name])
+        print(f"W=2 gloo {name} step against one process on all {B}: "
+              f"losses {json.dumps(r0['metrics'])} vs {json.dumps(metrics)}, "
+              f"max relative {loss_err:.3g} (tolerance 1e-4); each update's "
+              f"error over its tensor's largest update: max {worst:.3g}, "
+              f"median {median:.3g} (tolerances {limit[0]:.3g}, "
+              f"{limit[1]:.3g}; worst "
+              f"{sorted(upd.items(), key=lambda kv: -kv[1])[:3]}); running "
+              f"statistics {stat_err:.3g} (tolerance 1e-4); ranks identical "
+              f"{same}; without a gradient {r0['no_grad'] + r1['no_grad']}")
+        if (loss_err > 1e-4 or worst > limit[0] or median > limit[1]
+                or stat_err > 1e-4 or not same
+                or r0["metrics"] != r1["metrics"]
+                or r0["no_grad"] or r1["no_grad"]):
+            sys.exit(f"phase 13b: the W=2 {name} step is not the one-process "
+                     "step")
+        launches[f"ddp_gloo_w2_{name}_train_step"] = {
+            k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+    ev = [got[r]["eval"] for r in (0, 1)]
+    n_fwd = sum(e["launches"]["roi_align_fwd"] for e in ev)
+    same = all(np.array_equal(e["stats"], phase8["clean_stats"]) for e in ev)
+    print(f"W=2 gloo cli.evaluate: launches {[e['launches'] for e in ev]}, "
+          f"stats equal phase 8's {same}, wall {[e['wall_s'] for e in ev]} s")
+    _check_stats("W=2 cli.evaluate", ev[0]["stats"])
+    if not same or n_fwd != 16:
+        sys.exit("phase 13b: the W=2 eval is not phase 8's one-process eval")
+    launches["ddp_gloo_w2_cli_evaluate"] = {
+        k: sum(e["launches"][k] for e in ev) for k in ev[0]["launches"]}
+    readings = {
+        "w2_gloo_step_ms": [got[r]["step_ms"] for r in (0, 1)],
+        "w2_gloo_allreduce_ms": [got[r]["allreduce_ms"] for r in (0, 1)],
+        "w2_eval_img_s_wall": 16 / max(e["wall_s"] for e in ev),
+        "w2_note": DP_NOTE, "w2_seconds": seconds}
+    return launches, readings
+
+
+def run_torchrun():
+    """Phase 13c: ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m detectinblur_tpu_torch.cli.train`` on phase 8's
+    COCO, one step: it must exit 0, say it made an NCCL group and write
+    ``model_0.pt``. Its process group is killed on a timeout."""
+    import os
+    import signal
+
+    here = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        root, pth = _phase8_files(tmp)
+        out = Path(tmp) / "out"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m",
+               "detectinblur_tpu_torch.cli.train", "--data-path", root,
+               "--blur_train", "--expand_target_boxes", "-b", "2",
+               "--epochs", "1", "--early_stop", "1", "--output_dir",
+               str(out), "--lr", "1e-5", "--start_from_weights", pth]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            log, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            sys.exit("torchrun cli.train timed out")
+        seconds = time.perf_counter() - t0
+        tail = log.strip().splitlines()[-6:]
+        print(f"torchrun cli.train: exit {proc.returncode} in {seconds:.2f} s; "
+              + " | ".join(tail))
+        if (proc.returncode != 0 or "process 0 of 1 (nccl" not in log
+                or not (out / "model_0.pt").exists()):
+            sys.exit("torchrun cli.train failed")
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -2870,7 +3405,7 @@ def main():
     check_against_cpu()
     check_train_against_cpu()
     keep = tempfile.TemporaryDirectory()
-    entry = run_entry_points(Path(keep.name))
+    entry, phase8 = run_entry_points(Path(keep.name))
     remedy_train, remedy_img_s = run_remedy_train(cuda_gen)
     remedy_predict, remedy_predict_img_s = run_remedy_predict(cuda_gen)
     check_remedies_against_cpu()
@@ -2883,7 +3418,6 @@ def main():
     estimator = run_estimator(gen)
     ensemble_launches, ensemble_loops = run_ensemble_entry_points(
         Path(keep.name))
-    keep.cleanup()
     entry.update(ensemble_launches)
     print("phase 10 " + json.dumps({
         "deblur": deblur, "estimator_train": estimator,
@@ -2911,6 +3445,19 @@ def main():
     kp_launches, kp = run_keypoint_entry_points()
     entry.update(kp_launches)
     print("phase 12 " + json.dumps(kp | {"seconds": time.perf_counter() - t0}))
+
+    t0 = time.perf_counter()
+    entry["ddp_nccl_w1_cli_train"] = run_ddp_nccl_w1(phase8)
+    ddp_img_s, plain_img_s, entry["ddp_nccl_w1_train_step"] = (
+        time_ddp_w1_step(cuda_gen))
+    dp_launches, dp = run_ddp_gloo_w2(cuda_gen, Path(keep.name), phase8)
+    entry.update(dp_launches)
+    keep.cleanup()
+    torchrun_s = run_torchrun()
+    print("phase 13 " + json.dumps({
+        "ddp_w1_train_img_s": ddp_img_s, "plain_train_img_s": plain_img_s,
+        **dp, "torchrun_cli_train_s": torchrun_s,
+        "seconds": time.perf_counter() - t0}))
 
     by_path = {
         "roi_align_fwd": {"serving": launches,

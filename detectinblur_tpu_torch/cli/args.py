@@ -4,8 +4,7 @@ and evaluate.py:378-468), except ``--device``, which defaults to ``cuda``.
 
 Every flag is parsed as there. ``refuse_unported`` raises
 ``NotImplementedError`` naming a value the port does not support
-(``--world-size`` > 1, a ``--dataset`` or ``--model`` outside
-``_SUPPORTED``), and each evaluation-only flag (``EVAL_ONLY``:
+(a ``--dataset`` or ``--model`` outside ``_SUPPORTED``), and each evaluation-only flag (``EVAL_ONLY``:
 deblur-first, the ensemble, the natural-blur datasets and
 ``--image_output_dir``) given to ``cli.train``, which never reads them:
 no flag is silently ignored. ``estimator_parser`` is
@@ -100,7 +99,8 @@ def add_common_args(p: argparse.ArgumentParser):
                             "REDS", "RealBlur", "VidBlur"])
     p.add_argument("--expand_synth_boxes", action="store_true")
 
-    # distributed: one process only until DDP is ported
+    # distributed: one process per card, started by torchrun (--world-size
+    # 1, the default, takes the launcher's count); -b is the batch per card
     p.add_argument("--world-size", dest="world_size", default=1, type=int)
     p.add_argument("--dist-url", dest="dist_url", default="env://")
     return p
@@ -178,8 +178,6 @@ def refuse_unported(parser: argparse.ArgumentParser,
     supported = dict(_SUPPORTED, dataset=tuple(datasets))
     asked = [f"--{d} {getattr(args, d)}" for d, ok in supported.items()
              if getattr(args, d) not in ok]
-    if args.world_size > 1:
-        asked.append(f"--world-size {args.world_size}")
     unread = set_flags(parser, args, not_read)
     if asked or unread:
         raise NotImplementedError(

@@ -45,6 +45,14 @@ paths (an ``assert`` in JAX), or with ``--resume`` /
 ``--start_from_weights``; the ensemble's flags without ``--use_ensemble``;
 ``--expand_synth_boxes`` without ``--blurred_dataset GOPROSynth`` (JAX
 ignores it).
+
+Under ``torchrun --nproc_per_node N`` each process evaluates its shard of
+the images with the whole model (no DDP: nothing trains), and the
+detections are merged across the processes before COCOeval
+(``train/eval_loop.py``): a clean eval gives the stats of one process. The
+eval loop seeds each image's draws with the process index, as JAX folds
+it into its keys, so a blurred or corrupted eval draws other values than
+in one process.
 """
 
 from __future__ import annotations
@@ -72,7 +80,11 @@ from detectinblur_tpu_torch.data.blur_sampling import (
 from detectinblur_tpu_torch.data.loader import DetectionLoader
 from detectinblur_tpu_torch.data.natural_datasets import get_natural_dataset
 from detectinblur_tpu_torch.ops.psf import EVAL_FRACTIONS, EVAL_PARAMS
-from detectinblur_tpu_torch.parallel.dist import process_count, process_index
+from detectinblur_tpu_torch.parallel.dist import (
+    process_count,
+    process_group,
+    process_index,
+)
 from detectinblur_tpu_torch.models.backbones import SingleMapFasterRCNN
 from detectinblur_tpu_torch.models.classifier import ResNetClassifier
 from detectinblur_tpu_torch.models.deblur import MSResNet
@@ -240,6 +252,11 @@ def main(argv=None):
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
     check_remedy_flags(args)
+    with process_group(args, args.device):
+        return evaluate(args)
+
+
+def evaluate(args):
     device = resolve_device(args.device)
     np.random.seed(1337)
 

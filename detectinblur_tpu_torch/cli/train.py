@@ -17,10 +17,21 @@ The in-detector remedies follow their flags: ``--warp_in_model``,
 ``--use_custom_image_norm``, ``--unfrozen_batch_norm`` (the backbone's
 BatchNorms in ``train`` mode, also in the evals), ``--add_noise``,
 ``--add_block``, ``--add_jpeg_artefacts`` and the AugMix flags. Flags the
-port does not have yet raise ``NotImplementedError`` (``cli/args.py``);
-DDP training (``--world-size`` > 1) is among them. So do the flags of
-deblur-first, of the ensemble, of the natural-blur datasets and
-``--image_output_dir``, which only ``cli.evaluate`` reads. A detector
+port does not have yet raise ``NotImplementedError`` (``cli/args.py``),
+and so do the flags of deblur-first, of the ensemble, of the natural-blur
+datasets and ``--image_output_dir``, which only ``cli.evaluate`` reads.
+
+Data parallel, one process per card (the reference's DDP)::
+
+    torchrun --nproc_per_node N -m detectinblur_tpu_torch.cli.train ...
+
+``-b`` is the batch per card. Each process reads its shard of the data
+and seeds numpy and its generator with ``1337 + rank * 1337`` (JAX
+cli/train.py:108); before each step the processes agree that each has a
+batch and on one model bucket, the largest of theirs (that of the global
+batch), and the step reduces the gradients of the global batch
+(``train/engine.py``). Checkpoints and scalars come from process 0; the
+evals are merged across the processes. A detector
 ``.pth`` whose box predictor has another class count than the dataset's
 raises ``ValueError`` naming both when the file is loaded, before the
 first step; JAX fails on it at that step, in Flax's shape check
@@ -54,7 +65,7 @@ from detectinblur_tpu_torch.data.blur_sampling import (
     load_psf_bank,
 )
 from detectinblur_tpu_torch.data.coco import get_coco, get_coco_kp
-from detectinblur_tpu_torch.data.loader import DetectionLoader
+from detectinblur_tpu_torch.data.loader import DetectionLoader, steps_together
 from detectinblur_tpu_torch.models.backbones import (
     SingleMapConfig,
     SingleMapFasterRCNN,
@@ -65,7 +76,12 @@ from detectinblur_tpu_torch.models.faster_rcnn import (
     TwoStageDetector,
 )
 from detectinblur_tpu_torch.ops.psf import BLUR_PARAMS, EVAL_PARAMS
-from detectinblur_tpu_torch.parallel.dist import process_count, process_index
+from detectinblur_tpu_torch.parallel.dist import (
+    agree_max,
+    process_count,
+    process_group,
+    process_index,
+)
 from detectinblur_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     restore_weights,
@@ -177,8 +193,13 @@ def main(argv=None) -> TrainRun:
     parser = train_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args, not_read=EVAL_ONLY)
+    with process_group(args, args.device):
+        return train(args)
+
+
+def train(args) -> TrainRun:
     device = resolve_device(args.device)
-    np.random.seed(1337)
+    np.random.seed(1337 + process_index() * 1337)
 
     dataset, dataset_val = get_datasets(args)
 
@@ -234,7 +255,7 @@ def main(argv=None) -> TrainRun:
     eval_steps = {}   # (blur, model bucket) -> eval step, across epochs
 
     def step_for(hw):
-        b = model_bucket_for_batch(hw)
+        b = agree_max(model_bucket_for_batch(hw))
         if b not in steps:
             steps[b] = make_train_step(
                 model, schedule, b, blur_train=args.blur_train,
@@ -279,7 +300,8 @@ def main(argv=None) -> TrainRun:
             for name, value in zip(BLUR_STAT_TAGS, stats[:12]):
                 writer.add_scalar(f"{tag}/{name}", float(value), epoch)
 
-    generator = torch.Generator(device=device).manual_seed(1337)
+    generator = torch.Generator(device=device).manual_seed(
+        1337 + process_index() * 1337)
     losses: List[Dict[str, float]] = []
     global_iter = 0
     try:
@@ -297,7 +319,7 @@ def main(argv=None) -> TrainRun:
             logger = MetricLogger()
             t_epoch = time.time()
             for batch, _bucket, _ids in logger.log_every(
-                loader, args.print_freq, f"Epoch: [{epoch}]"
+                steps_together(loader), args.print_freq, f"Epoch: [{epoch}]"
             ):
                 state, metrics = step_for(batch.hw)(state, batch,
                                                     generator=generator)

@@ -29,6 +29,11 @@ GOPROBlurEst`` trains and evaluates on a rendered GOPRO set's split lists
 stored LEHE class, so it requires ``--LEHE_blur_seg`` as in JAX (the
 16-class labels would all be 0). The common flags this CLI does not read
 raise ``NotImplementedError``.
+
+Under ``torchrun --nproc_per_node N`` it trains data-parallel as
+``cli.train`` does (per-process seeds, shards, one model bucket a step,
+the gradients of the global batch, the checkpoint from process 0); the
+eval's rows are gathered from every process before the accuracies.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from detectinblur_tpu_torch.cli.args import (
     EVAL_ONLY,
@@ -48,10 +54,15 @@ from detectinblur_tpu_torch.cli.args import (
 from detectinblur_tpu_torch.data.batching import model_bucket_for
 from detectinblur_tpu_torch.data.blur_sampling import BlurPolicy, generate_psf_bank
 from detectinblur_tpu_torch.data.coco import get_coco
-from detectinblur_tpu_torch.data.loader import DetectionLoader
+from detectinblur_tpu_torch.data.loader import DetectionLoader, steps_together
 from detectinblur_tpu_torch.data.natural_datasets import GOPROBlurEst
 from detectinblur_tpu_torch.models.classifier import ResNetClassifier
-from detectinblur_tpu_torch.parallel.dist import process_count, process_index
+from detectinblur_tpu_torch.parallel.dist import (
+    agree_max,
+    process_count,
+    process_group,
+    process_index,
+)
 from detectinblur_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     restore_weights,
@@ -95,6 +106,25 @@ def confusion_matrix(preds, labels, n: int) -> np.ndarray:
     return cm
 
 
+def merge_rows(ids, *columns):
+    """Each column's rows of every process, an image's row from the first
+    process that evaluated it (the padded shards evaluate up to P-1
+    images twice), as the detector's eval merge keeps them. The columns
+    as they are in one process."""
+    if process_count() == 1:
+        return columns
+    gathered = [None] * process_count()
+    dist.all_gather_object(gathered, (ids, *columns))
+    seen, out = set(), [[] for _ in columns]
+    for host_ids, *host_columns in gathered:
+        for k, i in enumerate(host_ids):
+            if i not in seen:
+                seen.add(i)
+                for col, host_col in zip(out, host_columns):
+                    col.append(host_col[k])
+    return out
+
+
 def load_initial_weights(args, classifier: ResNetClassifier) -> None:
     """``--pretrained`` or a ``.pth`` ``--start_from_weights``: a
     torchvision resnet18 trunk, the fresh ``fc`` kept; a missing file
@@ -120,8 +150,13 @@ def main(argv=None) -> EstimatorRun:
     if args.dataset == "GOPROBlurEst" and not args.LEHE_blur_seg:
         raise ValueError("--dataset GOPROBlurEst requires --LEHE_blur_seg: "
                          "its stored labels are LEHE classes")
+    with process_group(args, args.device):
+        return train_estimator(args)
+
+
+def train_estimator(args) -> EstimatorRun:
     device = resolve_device(args.device)
-    np.random.seed(1337)
+    np.random.seed(1337 + process_index() * 1337)
 
     lehe = args.LEHE or args.LEHE_blur_seg
     n_classes = 4 if lehe else 16
@@ -155,7 +190,8 @@ def main(argv=None) -> EstimatorRun:
         print(f"resumed from {args.resume}")
 
     writer = ScalarWriter(args.tensorboard_path)
-    generator = torch.Generator(device=device).manual_seed(3)
+    generator = torch.Generator(device=device).manual_seed(
+        3 + process_index() * 1337)
     losses: List[Dict[str, float]] = []
     try:
         steps = {}
@@ -163,10 +199,13 @@ def main(argv=None) -> EstimatorRun:
             loader.set_epoch(epoch)
             logger = MetricLogger()
             for it, (batch, bucket, _) in enumerate(logger.log_every(
-                    loader, args.print_freq, f"Epoch [{epoch}]")):
+                    steps_together(loader), args.print_freq,
+                    f"Epoch [{epoch}]")):
+                # One model bucket on every process: the largest of theirs.
+                bucket = agree_max(model_bucket_for(bucket))
                 if bucket not in steps:
                     steps[bucket] = make_estimator_train_step(
-                        classifier, schedule, model_bucket_for(bucket),
+                        classifier, schedule, bucket,
                         lehe=lehe, label_smoothing=args.label_smoothing,
                         add_noise=args.add_noise, noise_level=args.noise_level,
                         add_block=args.add_block,
@@ -192,19 +231,21 @@ def main(argv=None) -> EstimatorRun:
             drop_last=False, num_processes=process_count(),
             process_index=process_index(), num_workers=args.workers)
         eval_steps = {}
-        preds, labels, top2 = [], [], []
-        for it, (batch, bucket, _) in enumerate(val_loader):
+        ids, preds, labels, top2 = [], [], [], []
+        for it, (batch, bucket, image_ids) in enumerate(val_loader):
             if bucket not in eval_steps:
                 eval_steps[bucket] = make_estimator_eval_step(
                     classifier, model_bucket_for(bucket), lehe=lehe,
                     resize_images=args.resize_images,
                     crop_images=args.crop_images)
             out = eval_steps[bucket](batch)
+            ids += [int(i) for i in image_ids]
             preds += out["pred"].tolist()
             labels += out["label"].tolist()
             top2 += out["top2_hit"].tolist()
             if args.early_stop and it >= args.early_stop:
                 break
+        preds, labels, top2 = merge_rows(ids, preds, labels, top2)
         preds, labels = np.asarray(preds), np.asarray(labels)
         top1 = float((preds == labels).mean())
         top2_acc = float(np.mean(top2))

@@ -13,6 +13,12 @@ identical for any worker count and to the JAX loader's.
 Two differences from the JAX loader: an exception raised while a batch is
 made reaches the consumer (there the iteration just ends early), and a
 consumer that stops early (``--early_stop``) stops the background thread.
+
+Each source bucket drops its own leftovers in training, so two processes
+whose shards mix aspect ratios differently may make different numbers of
+batches. The loader stays as JAX's; ``steps_together`` ends every
+process's epoch when the first runs out, so no process waits forever in
+a collective of the train step.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from detectinblur_tpu_torch.data.blur_sampling import (
     BlurPolicy,
     sample_blur_decision,
 )
+from detectinblur_tpu_torch.parallel.dist import all_have, process_count
 
 _DONE = object()
 
@@ -225,3 +232,29 @@ class DetectionLoader:
         finally:
             stop.set()
             t.join()
+
+
+class _Together:
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        try:
+            while True:
+                got = next(it, None)
+                if not all_have(got is not None):
+                    return
+                yield got
+        finally:
+            it.close()
+
+
+def steps_together(loader):
+    """``loader``'s batches while every process has one: before each
+    batch the processes agree that each holds one, and all end the epoch
+    when one has run out. ``loader`` itself in one process."""
+    return loader if process_count() == 1 else _Together(loader)

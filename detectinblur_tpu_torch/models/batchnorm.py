@@ -12,11 +12,13 @@ alone decides how a batch is normalized:
 
 The batch statistics are taken over N, H and W of the whole padded canvas
 in float32 whatever the activations' dtype, the variance biased as E[x^2]
-- m^2. ``train`` and ``acclimation`` update the running statistics with
-momentum 0.1 and the unbiased variance, and count the batch, but write
-the update only while the module is in training mode (the detector's
-``loss``): JAX threads the new statistics out of ``loss`` and drops them
-in ``predict``.
+- m^2. Under a process group, ``train`` mode in training takes them over
+every process's batch (the global batch, as JAX's mean over a sharded
+batch); the eval modes stay per process. ``train`` and ``acclimation``
+update the running statistics with momentum 0.1 and the unbiased
+variance, and count the batch, but write the update only while the
+module is in training mode (the detector's ``loss``): JAX threads the
+new statistics out of ``loss`` and drops them in ``predict``.
 
 The affine (``scale``, ``bias``) is a pair of float32 parameters, as in
 JAX: the detector's freeze mask (``train/state.py``) keeps them fixed,
@@ -32,6 +34,8 @@ import contextlib
 
 import torch
 from torch import nn
+
+from detectinblur_tpu_torch.parallel.dist import all_reduce_sum, distributed
 
 MODES = ("train", "eval", "acclimation", "mode_one")
 
@@ -52,6 +56,23 @@ class AdaptiveBatchNorm(nn.Module):
     def extra_repr(self) -> str:
         return f"{self.scale.shape[0]}, mode={self.mode}"
 
+    @staticmethod
+    def _global_moments(x32: torch.Tensor, n: int):
+        """(mean, biased variance, count) over every process's batch: the
+        sums of x and x^2 and the count, all-reduced in float64 with the
+        differentiable sum, as JAX's mean over the batch axes of a sharded
+        batch. The count stays a tensor on the device, so no layer waits
+        on the host."""
+        C = x32.shape[1]
+        sums = torch.cat([x32.sum(dim=(0, 2, 3)),
+                          x32.square().sum(dim=(0, 2, 3)),
+                          x32.new_full((1,), float(n))]).double()
+        sums = all_reduce_sum(sums)
+        total = sums[2 * C]
+        m = (sums[:C] / total).float()
+        v = (sums[C:2 * C] / total).float() - m.square()
+        return m, v, total.float()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mode = self.mode
         if mode == "eval":
@@ -59,11 +80,15 @@ class AdaptiveBatchNorm(nn.Module):
         else:
             x32 = x.float()
             n = x32.numel() // x32.shape[1]
-            m = x32.mean(dim=(0, 2, 3))
-            v = x32.square().mean(dim=(0, 2, 3)) - m.square()   # biased
+            if mode == "train" and self.training and distributed():
+                m, v, n = self._global_moments(x32, n)
+            else:
+                m = x32.mean(dim=(0, 2, 3))
+                v = x32.square().mean(dim=(0, 2, 3)) - m.square()   # biased
             use_m, use_v = m, v
             if mode in ("train", "acclimation"):
-                unbiased = v * n / max(n - 1, 1)
+                unbiased = (v * n / max(n - 1, 1) if isinstance(n, int)
+                            else v * n / (n - 1).clamp(min=1))
                 new_m = ((1 - self.momentum) * self.running_mean
                          + self.momentum * m)
                 new_v = ((1 - self.momentum) * self.running_var

@@ -72,6 +72,7 @@ from detectinblur_tpu_torch.models.rpn import (
 )
 from detectinblur_tpu_torch.ops.roi_align_cuda import multiscale_roi_align_cuda
 from detectinblur_tpu_torch.ops.warp import squint_warp
+from detectinblur_tpu_torch.parallel.dist import all_reduce_sum, distributed
 from detectinblur_tpu_torch.utils.device import (
     DEFAULT_PRECISION,
     act_dtype,
@@ -203,7 +204,10 @@ class TwoStageDetector(nn.Module):
         ``gt_valid`` [B, G]. The samplers draw from ``generator`` (on the
         model's device) or take ``draws``. Normalized as the JAX version
         (and torchvision): RPN sums over the batch's sampled anchors, head
-        sums over its sampled rois. ``means``, ``stds`` and the warp's as in
+        sums over its sampled rois; under a process group each process's
+        sums are divided by the counts of every process's batch, so the
+        losses summed over the processes are the global batch's (JAX's
+        mean over a sharded batch). ``means``, ``stds`` and the warp's as in
         ``predict``; the BatchNorms of the ``train`` and ``acclimation``
         modes update their running statistics."""
         cfg = self.cfg
@@ -236,8 +240,12 @@ class TwoStageDetector(nn.Module):
         ce_sum, box_sum, n = fastrcnn_loss(
             logits.reshape(B, S, -1), deltas.reshape(B, S, -1), roi_labels,
             reg_targets)
-        n_rpn = rpn_n.sum().clamp(min=1)
-        n_tot = n.sum().clamp(min=1)
+        n_rpn, n_tot = rpn_n.sum(), n.sum()
+        if distributed():
+            # Each process's sums over the global batch's counts: summed
+            # over the processes, they are the global batch's losses.
+            n_rpn, n_tot = all_reduce_sum(torch.stack([n_rpn, n_tot]))
+        n_rpn, n_tot = n_rpn.clamp(min=1), n_tot.clamp(min=1)
         return {
             "loss_objectness": rpn_obj.sum() / n_rpn,
             "loss_rpn_box_reg": rpn_box.sum() / n_rpn,

@@ -3,9 +3,11 @@
 Port of ``detectinblur_tpu/train/checkpoint.py`` on ``torch.save``. The
 reference's scheme (train.py:332-339): per-epoch ``model_{epoch}.pt``
 holding ``{model, optimizer, step, epoch}`` plus ``args_{epoch}.json``,
-written by process 0 only; ``--resume`` restores all of it,
-``--start_from_weights`` the weights only, from a full checkpoint or a
-bare state dict. The model's state dict carries its BatchNorm running
+written by process 0 only (the model itself, never its DDP wrapper, so
+the keys are the same at any process count), after which every process
+waits for the file; ``--resume`` restores all of it, onto each process's
+own device, ``--start_from_weights`` the weights only, from a full
+checkpoint or a bare state dict. The model's state dict carries its BatchNorm running
 statistics (a MobileNetV2 torso's, or a ``bn_mode`` backbone's), so they
 come back bit for bit with the weights; JAX keeps them in a ``bn_stats``
 subtree beside them (:32).
@@ -26,7 +28,7 @@ from typing import Mapping, Optional
 import torch
 from torch import nn
 
-from detectinblur_tpu_torch.parallel.dist import is_main_process
+from detectinblur_tpu_torch.parallel.dist import barrier, is_main_process
 from detectinblur_tpu_torch.train.state import TrainState
 
 FULL_KEYS = frozenset({"model", "optimizer", "step", "epoch"})
@@ -45,6 +47,7 @@ def save_checkpoint(output_dir: str, state: TrainState, epoch: int,
         if args is not None:
             with open(os.path.join(output_dir, f"args_{epoch}.json"), "w") as f:
                 json.dump(args, f, indent=2, default=str)
+    barrier()
     return path
 
 

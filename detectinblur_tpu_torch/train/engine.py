@@ -35,6 +35,11 @@ from detectinblur_tpu_torch.ops.boxes import expand_boxes_by_psf
 from detectinblur_tpu_torch.ops.normalization import get_norm_params
 from detectinblur_tpu_torch.ops.psf import dilate_psf as dilate_psfs
 from detectinblur_tpu_torch.ops.psf import psf_principal_components
+from detectinblur_tpu_torch.parallel.dist import (
+    data_parallel,
+    process_count,
+    sum_metrics,
+)
 from detectinblur_tpu_torch.train.estimator_engine import (
     CorruptionDraws,
     apply_corruptions,
@@ -153,7 +158,14 @@ def make_train_step(model, schedule: Callable[[int], float],
     ``draws`` (a ``faster_rcnn.LossDraws``) and ``corruption_draws``
     replace their draws. ``metrics`` holds the four losses and their sum
     ``loss``, detached. A ``bn_mode`` model's running statistics move in
-    place."""
+    place.
+
+    Made under a process group, the step runs ``model.loss`` in the
+    model's ``DistributedDataParallel`` (``parallel/dist.py``) on this
+    process's part of the global batch, and ``metrics`` are the global
+    batch's losses; the update equals one process's step on the whole
+    global batch."""
+    ddp = data_parallel(model)
 
     def step(state: TrainState, batch: BlurBatch,
              generator: Optional[torch.Generator] = None, draws=None,
@@ -169,19 +181,28 @@ def make_train_step(model, schedule: Callable[[int], float],
                 corruption_draws=corruption_draws)
         if use_warp:
             batch = derive_warp_params(batch)
-        losses = model.loss(batch.images, batch.hw, batch.gt_boxes,
-                            batch.gt_labels, batch.gt_valid, bucket,
-                            generator=generator, draws=draws,
-                            **remedy_kwargs(batch, use_warp, use_custom_norm))
+
+        def loss(m):
+            return m.loss(batch.images, batch.hw, batch.gt_boxes,
+                          batch.gt_labels, batch.gt_valid, bucket,
+                          generator=generator, draws=draws,
+                          **remedy_kwargs(batch, use_warp, use_custom_norm))
+
+        losses = loss(model) if ddp is None else ddp(loss)
         total = sum(losses.values())
         optimizer = state.optimizer
         optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        # DDP averages the gradients over the W processes; each process's
+        # losses are its share of the global batch's sums, so W times them
+        # gives the global losses' gradient.
+        (total if ddp is None else total * process_count()).backward()
         for group in optimizer.param_groups:
             group["lr"] = schedule(state.step)
         optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
+        if ddp is not None:
+            metrics = sum_metrics(metrics)
         return TrainState(state.step + 1, model, optimizer), metrics
 
     return step

@@ -40,6 +40,11 @@ from detectinblur_tpu_torch.models.detection_transform import (
 )
 from detectinblur_tpu_torch.ops.blur import batched_blur
 from detectinblur_tpu_torch.ops.jpeg import jpeg_compress_decompress
+from detectinblur_tpu_torch.parallel.dist import (
+    data_parallel,
+    process_count,
+    sum_metrics,
+)
 
 
 class CorruptionDraws(NamedTuple):
@@ -184,9 +189,16 @@ def make_estimator_train_step(classifier, schedule: Callable[[int], float],
     at the model bucket ``bucket``; the optimizer's learning rate follows
     ``schedule``. ``generator`` feeds the corruptions unless
     ``corruption_draws`` replaces their draws. The running statistics
-    move in place."""
+    move in place.
+
+    Made under a process group, the classifier runs in its
+    ``DistributedDataParallel``: the loss is a mean over equal batches on
+    every process, so DDP's average of the gradients is the global
+    batch's, and the metrics are the global batch's means."""
     from detectinblur_tpu_torch.train.engine import images01, to_device
     from detectinblur_tpu_torch.train.state import TrainState
+
+    ddp = data_parallel(classifier)
 
     def step(state, batch, generator: Optional[torch.Generator] = None,
              corruption_draws: Optional[CorruptionDraws] = None):
@@ -201,7 +213,8 @@ def make_estimator_train_step(classifier, schedule: Callable[[int], float],
                                    crop_images=crop_images)
         labels = _labels(batch, lehe)
         with training_mode(classifier):
-            logits = classifier(imgs)
+            logits = classifier(imgs) if ddp is None else ddp(
+                lambda m: m(imgs))
         nc = logits.shape[-1]
         target = F.one_hot(labels, nc).float()
         if label_smoothing > 0:
@@ -214,8 +227,11 @@ def make_estimator_train_step(classifier, schedule: Callable[[int], float],
         for group in optimizer.param_groups:
             group["lr"] = schedule(state.step)
         optimizer.step()
-        return (TrainState(state.step + 1, classifier, optimizer),
-                {"loss": loss.detach(), "top1": top1})
+        metrics = {"loss": loss.detach(), "top1": top1}
+        if ddp is not None:
+            metrics = {k: v / process_count()
+                       for k, v in sum_metrics(metrics).items()}
+        return TrainState(state.step + 1, classifier, optimizer), metrics
 
     return step
 

@@ -7,12 +7,17 @@ directory is listed in ``.gitignore``. Nothing here runs at import time.
 
 ``build`` starts one ``nvcc`` per missing library, all at once, and waits
 for them together, so a script that needs several kernels pays for the
-slowest build only.
+slowest build only. Processes that build at once (the ranks of
+``torchrun`` on a cold build directory) take turns under a file lock: the
+first compiles, the others find the libraries built. Each library is
+compiled under a temporary name and renamed into place, so no process
+ever loads a partial file.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -46,10 +51,16 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     """Compile every library in ``names`` that is not built yet, in
     parallel. Returns the compiler output per name built now (ptxas's
     register and spill report); raises if any build fails."""
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
+    if all(library_path(n).exists() for n in names):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        todo = [n for n in names if not library_path(n).exists()]
+        return _compile(todo) if todo else {}
+
+
+def _compile(todo: Sequence[str]) -> Dict[str, str]:
     nvcc = _nvcc()
     procs = {}
     for name in todo:

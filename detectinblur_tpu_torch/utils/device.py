@@ -21,6 +21,12 @@ import os
 
 import torch
 
+from detectinblur_tpu_torch.parallel.dist import (
+    distributed,
+    local_rank,
+    rank_device,
+)
+
 PRECISIONS = ("default", "highest")
 DEFAULT_PRECISION = os.environ.get("DETECTINBLUR_PRECISION", "highest")
 
@@ -47,10 +53,16 @@ def set_fp32_math() -> None:
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     another one. Raises when CUDA is wanted and absent, rather than
-    quietly running on the CPU."""
+    quietly running on the CPU. Under a process group plain ``cuda`` is
+    the process's own card, ``cuda:LOCAL_RANK`` (``parallel/dist.py``),
+    which becomes the current device; an explicit ``cuda:K`` is kept."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU")
+    if distributed():
+        dev = rank_device(dev, local_rank())
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
     return dev

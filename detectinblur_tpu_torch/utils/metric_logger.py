@@ -38,7 +38,10 @@ class SmoothedValue:
     def synchronize_between_processes(self):
         if process_count() == 1:
             return
-        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        # Under NCCL on the process's own card, which resolve_device made
+        # the current one.
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend() == "nccl" else "cpu")
         t = torch.tensor([self.count, self.total], dtype=torch.float64,
                          device=device)
         dist.all_reduce(t)

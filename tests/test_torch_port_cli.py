@@ -487,20 +487,27 @@ REFUSED += [["--deblurer_model_location", "d.pth"],
             ["--blurred_dataset", "GOPRO"], ["--world-size", "2"]]
 
 
+# ``--world-size`` > 1 is ported: without the launcher's environment it
+# raises, naming the launch command.
+RAISES = {"--world-size": (RuntimeError, "torchrun --nproc_per_node 2")}
+
+
 @pytest.mark.parametrize("flag", REFUSED, ids=lambda f: f[0])
 def test_unported_flag_raises(flag, tmp_path):
     """Each flag the port does not have yet raises NotImplementedError
     naming it, in both CLIs, before any work starts. The flags of
     deblur-first, of the ensemble, of the natural-blur datasets and
     ``--image_output_dir`` (``EVAL_ONLY``) are ported in ``cli.evaluate``;
-    ``cli.train``, which never reads them, still raises."""
+    ``cli.train``, which never reads them, still raises. ``--world-size
+    2`` without ``torchrun`` raises ``RAISES``' error in both."""
     name = flag[0]
+    error, match = RAISES.get(name, (NotImplementedError, name))
     for mod in (cli_eval, cli_train):
         if name in ("--dilate_psf", "--mode_one_norm") and mod is cli_train:
             continue    # evaluate-only flags
         if name.lstrip("-") in EVAL_ONLY and mod is cli_eval:
             continue    # ported in cli.evaluate
-        with pytest.raises(NotImplementedError, match=name):
+        with pytest.raises(error, match=match):
             mod.main(["--data-path", str(tmp_path), "--device", "cpu", *flag])
 
 
