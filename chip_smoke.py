@@ -8,7 +8,8 @@ CUDA card.
 Phases (any failure exits non-zero and prints no result):
   1. Require CUDA; print the card's name and power limit.
   2. Build every kernel of the paths from the sources in the checkout (one
-     nvcc per source, in parallel); print ptxas's registers and spills.
+     nvcc per source, in parallel: both RoIAlign kernels and the greedy
+     NMS pass); print ptxas's registers and spills.
   3. Hold each kernel against its plain torch version: the RoIAlign
      forward at the serving shapes (8 images x 1000 rois on the 832x1088
      bucket's P2..P5), the backward at the train shapes (8 x 512 rois),
@@ -19,14 +20,17 @@ Phases (any failure exits non-zero and prints no result):
      camera-shake PSFs (expl 0.005, fraction 0.5) sampled once, blur, then
      Faster R-CNN ResNet50-FPN predict at full width in throughput
      (``default``) precision with the RPN delta head zeroed. Check the
-     outputs, prove the path launched the forward kernel, time it (img/s
-     and ms per stage with CUDA events).
+     outputs, prove the path launched the forward kernel and the NMS
+     kernel, list what in predict still synchronizes with the host (none
+     of it in NMS), time it (img/s and ms per stage with CUDA events; img/s
+     with NMS through the kernel and the plain version in turns).
   5. Training, with bench_train.py's protocol: the same batch shape with
      16 random GT boxes per image, blur and PSF-driven GT expansion, then
      the loss, backward and SGD (lr 0.04, 1000 steps per epoch, warmup) of
      a model trained from scratch, ``default`` precision. Prove the step
-     launched both kernels, check the losses and which parameters moved,
-     time it (img/s, ms per stage, peak memory).
+     launched its three kernels, check the losses and which parameters
+     moved, time it (img/s, ms per stage, peak memory; img/s with NMS
+     through the kernel and the plain version in turns).
   6. Time each kernel on its path's own inputs beside its plain version
      and its bound (the forward on the serving and the train rois), and
      count the unique cells each roi touches: the backward issues one
@@ -52,12 +56,14 @@ Phases (any failure exits non-zero and prints no result):
      step bit for bit. ``cli.evaluate.main``, clean with that checkpoint
      and as a one-param blur sweep from the ``.pth``, must launch
      ``roi_align_fwd`` once per image (5 cells for the sweep). Every eval
-     must give 19 finite stats with detections scored (AR100 >= 0). Each
-     kernel is held against its plain version on the inputs each CLI
+     must give 19 finite stats with detections scored (AR100 >= 0) and
+     launch ``nms_alive`` twice an image (the RPN's, the postprocess's).
+     Each kernel is held against its plain version on the inputs each CLI
      handed it (one per model bucket and batch shape). The clean eval runs
      again under torch.profiler, for the device's busy share and each
-     stage of the CLI's own step, and on the CPU, whose 19 stats must
-     match the card's. Prints each eval loop's wall-clock img/s (a smoke
+     stage of the CLI's own step, four times with NMS through the kernel
+     and the plain version in turns (the same stats; img/s and step ms),
+     and on the CPU, whose 19 stats must match the card's. Prints each eval loop's wall-clock img/s (a smoke
      reading: each bucket's first step is cold), the wall ms of its steps
      (CUDA events around each step) and the share outside them, the model
      buckets, the PSF banks' generation time and the peak memory.
@@ -163,10 +169,25 @@ Phases (any failure exits non-zero and prints no result):
      detectinblur_tpu_torch.cli.train ... --early_stop 1``: exit 0, an
      NCCL group, ``model_0.pt``.
 
+ 14. The greedy-NMS kernel (``csrc/nms.cu``, ``ops/nms.py::nms_alive``)
+     held bit for bit against its plain version on the card: equal alive
+     masks and equal (idxs, valid) from ``nms`` and ``batched_nms`` on
+     each hard case of ``tests/nms_cases.py`` (a float32 IoU equal to the
+     threshold, identical boxes with equal scores, zero-area boxes, every
+     entry dead, N = 1 to 4097, suppression chains across the 64- and
+     128-box boundaries, 90 categories on a 1333 canvas), from
+     ``grouped_nms_presorted`` on the small ones as groups, and on what
+     the RPN and the postprocess handed the NMS functions in phases 4, 5,
+     8 and 11; each kernel call under
+     ``torch.cuda.set_sync_debug_mode("error")``. Then the kernel timed on
+     each of those inputs beside the plain version and its bound; every
+     path that runs NMS must have launched it.
+
 The last two lines are a JSON object describing each kernel (its
 ``launches`` summed over the counted runs of every path, one count per
-path in ``launches_by_path``, and its phase 11 readings per single-map
-detector in ``single_map``) and ``{"ok": true, "device": {...}}``.
+path in ``launches_by_path``, its phase 11 readings per single-map
+detector in ``single_map``, and the NMS kernel's readings on each path's
+inputs in ``paths``) and ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -468,6 +489,105 @@ def _capture_roi_align(fwd, bwd):
         fn.forward, fn.backward = staticmethod(forward), staticmethod(backward)
 
 
+# What the RPN and the postprocess handed the NMS functions, per path:
+# (path, function, input shapes) -> (function name, arguments), the first
+# call of each shape (``_capture_nms``); phase 14 holds and times the
+# kernel on them.
+NMS_CAPTURED = {}
+
+
+@contextlib.contextmanager
+def _capture_nms(path):
+    """While open, record in ``NMS_CAPTURED`` what ``models/rpn.py`` hands
+    ``grouped_nms_presorted`` and ``models/roi_heads.py`` hands
+    ``batched_nms`` under ``path``, the first call of each shape (clones:
+    no kernel is launched for it)."""
+    from detectinblur_tpu_torch.models import roi_heads, rpn
+
+    sites = ((rpn, "grouped_nms_presorted"), (roi_heads, "batched_nms"))
+    saved = [getattr(mod, name) for mod, name in sites]
+
+    def recording(name, fn):
+        def call(*args):
+            key = (path, name, tuple(tuple(a.shape) for a in args
+                                     if isinstance(a, torch.Tensor)))
+            if key not in NMS_CAPTURED:
+                NMS_CAPTURED[key] = (name, [
+                    a.detach().clone() if isinstance(a, torch.Tensor) else a
+                    for a in args])
+            return fn(*args)
+        return call
+
+    for (mod, name), fn in zip(sites, saved):
+        setattr(mod, name, recording(name, fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(sites, saved):
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def _nms_route(plain, record=None):
+    """While open, the NMS functions' greedy pass (``ops/nms.py::
+    _alive_sorted``) runs the plain version (``plain``) or the kernel, as
+    the port routes it; ``record`` gets each call's (boxes, alive in,
+    threshold, alive out). A measurement of this script: the package has
+    no such switch."""
+    from detectinblur_tpu_torch.ops import nms
+
+    routed = nms._alive_sorted
+
+    def route(sboxes, salive, thr):
+        if plain:
+            alive = nms._alive_sorted_plain(sboxes.float().contiguous(),
+                                            salive.contiguous(), thr)
+        else:
+            alive = routed(sboxes, salive, thr)
+        if record is not None:
+            record.append((sboxes, salive, thr, alive))
+        return alive
+
+    nms._alive_sorted = route
+    try:
+        yield
+    finally:
+        nms._alive_sorted = routed
+
+
+def _sync_sites(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``; return
+    {the port's innermost file:line (function) that called a synchronizing
+    CUDA operation: count}."""
+    import traceback
+    import warnings
+
+    sites = {}
+
+    def show(message, *args, **kwargs):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "detectinblur_tpu_torch" in f.filename]
+        key = "outside the port"
+        if frames:
+            f = frames[-1]
+            rel = f.filename[f.filename.rindex("detectinblur_tpu_torch"):]
+            key = f"{rel}:{f.lineno} ({f.name})"
+        sites[key] = sites.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
 def _step_img_s(step, state, batch, gen, windows=5, iters=4):
     """A train step's throughput: windows of ``iters`` steps timed with
     CUDA events, the lower median of their img/s. Returns (img/s, each
@@ -495,7 +615,6 @@ def run_train(gen):
         FasterRCNN,
         FasterRCNNConfig,
     )
-    from detectinblur_tpu_torch.ops import roi_align_cuda
     from detectinblur_tpu_torch.train.engine import (
         apply_blur_and_expand,
         images01,
@@ -519,7 +638,7 @@ def run_train(gen):
     # geometry saved by the forward).
     state, _ = step(state, batch, generator=gen)
     fwd, bwd = {}, {}
-    with _capture_roi_align(fwd, bwd):
+    with _capture_roi_align(fwd, bwd), _capture_nms("train_step"):
         state, _ = step(state, batch, generator=gen)
     torch.cuda.synchronize()
     (_, levels), = fwd.values()
@@ -527,12 +646,8 @@ def run_train(gen):
 
     # The main path, counted.
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    roi_align_cuda.roi_align_fwd.launches = 0
-    roi_align_cuda.roi_align_bwd.launches = 0
-    state, metrics = step(state, batch, generator=gen)
-    torch.cuda.synchronize()
-    launches = {"roi_align_fwd": roi_align_cuda.roi_align_fwd.launches,
-                "roi_align_bwd": roi_align_cuda.roi_align_bwd.launches}
+    (state, metrics), launches = _counted(
+        lambda: step(state, batch, generator=gen))
     print(f"train step: launches {launches}, losses "
           + json.dumps({k: v.item() for k, v in metrics.items()}))
     if min(launches.values()) == 0:
@@ -552,6 +667,16 @@ def run_train(gen):
     torch.cuda.reset_peak_memory_stats()
     img_s, rates, state = _step_img_s(step, state, batch, gen)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # NMS through the kernel and through the plain version, in turns, on
+    # a generator of their own: ``gen``'s stream stays what the later
+    # phases' inputs were made from before these turns existed.
+    turns = {"kernel": [], "plain": []}
+    turn_gen = torch.Generator(device="cuda").manual_seed(5)
+    for route in ("kernel", "plain", "plain", "kernel"):
+        with _nms_route(route == "plain"):
+            rate, _, state = _step_img_s(step, state, batch, turn_gen,
+                                         windows=1)
+        turns[route].append(rate)
 
     # Per stage: the step's own calls, CUDA events between them.
     names = ("blur_expand", "forward_losses", "backward", "optimizer")
@@ -577,7 +702,8 @@ def run_train(gen):
         state = state._replace(step=state.step + 1)
         for i, name in enumerate(names):
             acc[name] += ev[i].elapsed_time(ev[i + 1]) / n
-    summary = {"img_s": img_s, "window_img_s": rates, "stage_ms": acc,
+    summary = {"img_s": img_s, "window_img_s": rates,
+               "nms_turns_img_s": turns, "stage_ms": acc,
                "peak_mem_gib": peak}
     print("train " + json.dumps(summary))
     return launches, levels, captured, img_s
@@ -639,6 +765,7 @@ def run_slice(gen):
         FasterRCNNConfig,
     )
     from detectinblur_tpu_torch.ops.blur import batched_blur
+    from detectinblur_tpu_torch.ops.nms import nms_alive
     from detectinblur_tpu_torch.ops.psf import sample_psf
     from detectinblur_tpu_torch.ops.roi_align_cuda import roi_align_fwd
 
@@ -664,18 +791,26 @@ def run_slice(gen):
         blurred = batched_blur(images.permute(0, 3, 1, 2), psfs, blurring)
         return model.predict(blurred.permute(0, 2, 3, 1), hw, bucket)
 
-    for _ in range(2):
+    with _capture_nms("serving"):
         blur_detect()
+    blur_detect()
     torch.cuda.synchronize()
 
     # The main path, counted.
-    roi_align_fwd.launches = 0
+    roi_align_fwd.launches = nms_alive.launches = 0
     det = blur_detect()
     torch.cuda.synchronize()
-    launches = roi_align_fwd.launches
-    print(f"main path: roi_align_fwd launches {launches}")
-    if launches == 0:
-        sys.exit("the main path never launched roi_align_fwd")
+    launches, nms_launches = roi_align_fwd.launches, nms_alive.launches
+    print(f"main path: roi_align_fwd launches {launches}, nms_alive "
+          f"launches {nms_launches}")
+    if launches == 0 or nms_launches == 0:
+        sys.exit("the main path never launched roi_align_fwd or nms_alive")
+    # What in predict still waits on the host, NMS on the kernel.
+    sites = _sync_sites(blur_detect)
+    print("serving predict, synchronizing CUDA operations by the port's "
+          "innermost frame: " + json.dumps(sites))
+    if any("ops/nms.py" in k for k in sites):
+        sys.exit("NMS synchronized with the host on the card")
     if det.boxes.shape != (B, 100, 4) or det.scores.shape != (B, 100):
         sys.exit(f"unexpected output shapes {det.boxes.shape} {det.scores.shape}")
     if not (torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()):
@@ -692,6 +827,13 @@ def run_slice(gen):
              for _ in range(windows)]
     img_s = sorted(rates)[(windows - 1) // 2]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # NMS through the kernel and through the plain version, in turns.
+    turns = {"kernel": [], "plain": []}
+    for route in ("kernel", "plain", "plain", "kernel"):
+        with _nms_route(route == "plain"):
+            turns[route].append(B * iters / (_cuda_ms(blur_detect, iters)
+                                             * iters / 1e3))
+    print("serving img/s, NMS kernel vs plain in turns " + json.dumps(turns))
 
     # Per stage, device time between CUDA events.
     names = ("blur", "preprocess", "backbone", "rpn", "roi_align",
@@ -720,10 +862,11 @@ def run_slice(gen):
                 acc[name] += ev[i].elapsed_time(ev[i + 1]) / n
     rois = torch.where(valid[..., None], props, torch.zeros_like(props))
     summary = {"img_s": img_s, "window_img_s": rates,
-               "stage_ms": acc, "peak_mem_gib": peak,
+               "nms_turns_img_s": turns, "stage_ms": acc, "peak_mem_gib": peak,
                "valid_proposals": valid.sum(1).tolist()}
     print("slice " + json.dumps(summary))
-    return bucket, launches, [f for f in feats[:4]], rois, img_s
+    return (bucket, launches, nms_launches, [f for f in feats[:4]], rois,
+            img_s)
 
 
 def time_fwd_kernel(feats, geom, R, where):
@@ -921,9 +1064,10 @@ def _write_coco(root, n_cats=90, box_frac=(0.05, 0.6)):
 def _counted(fn):
     """(fn's result, launches of each kernel during fn) with the counts
     set to 0 just before and read just after."""
-    from detectinblur_tpu_torch.ops import roi_align_cuda
+    from detectinblur_tpu_torch.ops import nms, roi_align_cuda
 
-    kernels = (roi_align_cuda.roi_align_fwd, roi_align_cuda.roi_align_bwd)
+    kernels = (roi_align_cuda.roi_align_fwd, roi_align_cuda.roi_align_bwd,
+               nms.nms_alive)
     for k in kernels:
         k.launches = 0
     out = fn()
@@ -1097,7 +1241,7 @@ def run_entry_points(keep):
         out = str(Path(tmp) / "out")
         fwd, bwd = {}, {}
         t0 = time.perf_counter()
-        with _capture_roi_align(fwd, bwd):
+        with _capture_roi_align(fwd, bwd), _capture_nms("cli.train"):
             run, train_launches = _counted(lambda: cli_train.main(
                 _phase8_train_argv(root, out, pth)))
         print(f"cli.train: {time.perf_counter() - t0:.2f} s, launches "
@@ -1120,7 +1264,8 @@ def run_entry_points(keep):
         first_losses = run.losses[0]
         del run
 
-        eval_launches = {"roi_align_fwd": 0, "roi_align_bwd": 0}
+        eval_launches = {"roi_align_fwd": 0, "roi_align_bwd": 0,
+                         "nms_alive": 0}
         buckets = set()
         clean = ["--data-path", root, "--resume", str(ckpt), "--vanilla_eval"]
         sweep = ["--data-path", root, "--start_from_weights", pth,
@@ -1129,7 +1274,7 @@ def run_entry_points(keep):
             path[0] = f"cli.evaluate {name}"
             fwd = {}
             t0 = time.perf_counter()
-            with _capture_roi_align(fwd, {}):
+            with _capture_roi_align(fwd, {}), _capture_nms(path[0]):
                 got, launches = _counted(lambda: cli_eval.main(argv))
             print(f"{path[0]}: {time.perf_counter() - t0:.2f} s, launches "
                   f"{launches}")
@@ -1138,10 +1283,11 @@ def run_entry_points(keep):
                 sys.exit(f"{path[0]}: {len(results)} cells, want {cells}")
             for cell, stats in sorted(results.items()):
                 _check_stats(f"{path[0]} {cell}", stats)
-            if launches["roi_align_fwd"] != 16 * cells:
-                sys.exit(f"{path[0]}: roi_align_fwd launched "
-                         f"{launches['roi_align_fwd']} times for "
-                         f"{16 * cells} images")
+            if (launches["roi_align_fwd"] != 16 * cells
+                    or launches["nms_alive"] != 2 * 16 * cells):
+                sys.exit(f"{path[0]}: launches {launches} for {16 * cells} "
+                         f"images (one roi_align_fwd and two nms_alive, the "
+                         f"RPN's and the postprocess's, an image)")
             for k, v in launches.items():
                 eval_launches[k] += v
             buckets |= check_captured(path[0], fwd, {})
@@ -1153,6 +1299,19 @@ def run_entry_points(keep):
         path[0] = "cli.evaluate clean, profiled"
         _, profiled = profile_eval(clean, loops)
         print("eval profile " + json.dumps(profiled))
+        # The clean eval with NMS through the kernel and through the plain
+        # version, in turns: img/s and the steps' ms an image.
+        turns = {"kernel": [], "plain": []}
+        for route in ("kernel", "plain", "plain", "kernel"):
+            path[0] = f"cli.evaluate clean, NMS {route}"
+            with _nms_route(route == "plain"):
+                stats = cli_eval.main(clean)
+            if not np.array_equal(stats, clean_stats):
+                sys.exit(f"{path[0]}: stats differ from the clean eval's")
+            turns[route].append({k: loops[-1][k] for k in (
+                "img_s", "step_ms_per_image")})
+        print("eval, NMS kernel vs plain in turns (stats equal) "
+              + json.dumps(turns))
         # The card's clean eval against the CPU's (the plain versions), on
         # the same checkpoint and images: the CPU tests' tolerance against
         # JAX, 1e-3 absolute and 1e-3 of each stat; and the detections
@@ -1186,6 +1345,7 @@ def run_entry_points(keep):
         "eval_device_busy_ms_per_image": profiled["device_busy_ms_per_image"],
         "eval_device_busy_share_of_steps":
             profiled["device_busy_share_of_steps"],
+        "eval_nms_turns": turns,
         "model_buckets": sorted(buckets), "psf_banks": banks,
         "peak_mem_gib": peak}))
     return ({"cli_train": train_launches, "cli_evaluate": eval_launches},
@@ -1444,7 +1604,7 @@ def run_remedy_predict(gen):
     print("remedy predict " + json.dumps({
         "img_s": img_s, "window_img_s": rates, "stage_ms": acc,
         "peak_mem_gib": peak}))
-    return launches["roi_align_fwd"], img_s
+    return launches, img_s
 
 
 def _match_share(got, ref):
@@ -2142,14 +2302,15 @@ def run_single_map_serving(torso, gen):
         if blur_detect().valid.sum(1).min() > 0:
             break
     fwd = {}
-    with _capture_roi_align(fwd, {}):
+    with _capture_roi_align(fwd, {}), _capture_nms(
+            f"single_map_{torso}_serving"):
         blur_detect()
     det, launches = _counted(blur_detect)
-    launches = launches["roi_align_fwd"]
     print(f"single-map {torso} serving: bucket {bucket}, class scores x"
-          f"{scale}, roi_align_fwd launches {launches}")
-    if launches == 0:
-        sys.exit(f"single-map {torso} serving never launched roi_align_fwd")
+          f"{scale}, launches {launches}")
+    if launches["roi_align_fwd"] == 0 or launches["nms_alive"] == 0:
+        sys.exit(f"single-map {torso} serving never launched roi_align_fwd "
+                 f"or nms_alive")
     if det.boxes.shape != (B, 100, 4) or not (
             torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()):
         sys.exit(f"single-map {torso}: bad detections {det.boxes.shape}")
@@ -2223,7 +2384,8 @@ def run_single_map_train(torso, gen):
     batch = _train_batch(gen)
     state, _ = step(state, batch, generator=gen)
     fwd, bwd = {}, {}
-    with _capture_roi_align(fwd, bwd):
+    with _capture_roi_align(fwd, bwd), _capture_nms(
+            f"single_map_{torso}_train_step"):
         state, _ = step(state, batch, generator=gen)
     torch.cuda.synchronize()
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -3357,6 +3519,166 @@ def run_torchrun():
     return seconds
 
 
+# ----------------------------------------------------------- NMS (phase 14)
+# float32 operations of one IoU test in ops/boxes.py::box_iou's order: 2
+# max, 2 min, 2 subtractions, 2 clamps, the product, the sum, the
+# difference, the max with 1e-12, the division and the comparison.
+NMS_OPS_PER_PAIR = 14
+# Paths whose counted run must have launched the NMS kernel.
+NMS_PATHS = ("serving", "train_step", "cli_evaluate",
+             "single_map_mobile_net_serving", "single_map_resnet_50_serving",
+             "single_map_mobile_net_train_step",
+             "single_map_resnet_50_train_step")
+
+
+def _hold_nms(what, fn, args):
+    """``fn(*args)``, a public NMS function on card tensors, through the
+    kernel under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
+    raises) and through the plain version: exit unless each greedy pass's
+    alive mask and the (idxs, valid) are equal bit for bit. Returns the
+    number of differing entries (0) and the kernel's greedy passes
+    (boxes, alive in, threshold, alive out)."""
+    from detectinblur_tpu_torch.ops import nms
+
+    got_rec, ref_rec = [], []
+    before = nms.nms_alive.launches
+    with _nms_route(False, got_rec):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    launched = nms.nms_alive.launches - before
+    with _nms_route(True, ref_rec):
+        ref = fn(*args)
+    masks = [(g[3], r[3]) for g, r in zip(got_rec, ref_rec)]
+    diff = sum(int((g != r).sum()) for g, r in masks)
+    same_out = all(torch.equal(g, r) for g, r in zip(got, ref))
+    ok = (launched == len(got_rec) == len(ref_rec) == 1 and diff == 0
+          and same_out)
+    print(f"{what}: alive {[tuple(g.shape) for g, _ in masks]}, kept "
+          f"{sum(int(g.sum()) for g, _ in masks)}, {diff} entries differ, "
+          f"(idxs, valid) {'equal' if same_out else 'DIFFER'}, {launched} "
+          f"launch, no host sync: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        sys.exit(f"{what}: the NMS kernel disagrees with its plain version")
+    return diff, got_rec
+
+
+def nms_bound(sboxes, salive, alive):
+    """(bound ms, bound_by, bytes, ops, pairs, the bound over all pairs)
+    of the greedy pass on these inputs: the IoU tests this run's answer
+    needs, one per pair (kept r, alive c > r), at ``NMS_OPS_PER_PAIR``
+    float32 operations, plus 3 a box for its area; the boxes read once,
+    the alive mask read and written once. Beside it, the bound of the
+    N(N-1)/2 pairs of each problem."""
+    M, N = salive.shape
+    later = salive.flip(1).int().cumsum(1).flip(1) - salive.int()
+    pairs = int((alive.int() * later).sum())
+    nbytes = M * N * (16 + 1 + 1)
+    ops = NMS_OPS_PER_PAIR * pairs + 3 * M * N
+    all_ops = NMS_OPS_PER_PAIR * (M * N * (N - 1) // 2) + 3 * M * N
+    return (*_bound(nbytes, ops), nbytes, ops, pairs,
+            _bound(nbytes, all_ops)[0])
+
+
+def time_nms(rec, where):
+    """nms_alive alone on one greedy pass's inputs, beside the plain
+    version on the card and the bound."""
+    from detectinblur_tpu_torch.ops import nms
+
+    sboxes, salive, thr, alive = rec
+    b, a = sboxes.float().contiguous(), salive.contiguous()
+    ms = _cuda_ms(lambda: nms.nms_alive(b, a, thr), 20)
+    plain_ms = _cuda_ms(lambda: nms._alive_sorted_plain(b, a, thr), 3)
+    bound_ms, bound_by, nbytes, ops, pairs, all_ms = nms_bound(b, a, alive)
+    M, N = a.shape
+    out = {"shape": [M, N], "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "all_pairs_bound_ms": all_ms, "scan_steps": N,
+           "alive_in": int(a.sum()), "kept": int(alive.sum())}
+    print(f"nms_alive on {where} ({M} x {N}, thr {thr}): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+          f"({pairs} pairs (kept, later alive), {ops} operations, {nbytes} "
+          f"bytes; all N(N-1)/2 pairs {all_ms:.5f} ms), {N} sequential "
+          f"scan steps, {out['alive_in']} alive in, {out['kept']} kept")
+    return out
+
+
+def run_nms_phase(by_path):
+    """Phase 14: the NMS kernel held bit for bit against its plain version
+    (``_hold_nms``) on the hard cases of ``tests/nms_cases.py`` and on what
+    the RPN and the postprocess handed the NMS functions in phases 4, 5, 8
+    and 11 (``NMS_CAPTURED``), then timed on each of those inputs. Returns
+    the kernel's entry of the ``kernels`` line."""
+    import nms_cases
+
+    from detectinblur_tpu_torch.ops import nms
+
+    missing = [p for p in NMS_PATHS if not by_path["nms_alive"].get(p)]
+    if missing:
+        sys.exit(f"phase 14: no nms_alive launch on the paths {missing}")
+    diffs = 0
+    small = []
+    for case in nms_cases.cases():
+        n = len(case["scores"])
+        boxes = torch.from_numpy(case["boxes"]).cuda()
+        scores = torch.from_numpy(case["scores"]).cuda()
+        cats = case["categories"]
+        cats = torch.from_numpy(np.ones(n, np.int32) if cats is None
+                                else cats).cuda()
+        for name, args in (("nms", (boxes, scores, case["thr"], n + 3)),
+                           ("batched_nms", (boxes, scores, cats, case["thr"],
+                                            min(n, 100)))):
+            d, _ = _hold_nms(f"phase 14 {case['name']}: {name}",
+                             getattr(nms, name), args)
+            diffs += d
+        if case["expect"] is not None:
+            idxs, valid = nms.nms(boxes, scores, case["thr"], n + 3)
+            kept = idxs[valid].tolist()
+            if kept != case["expect"]:
+                sys.exit(f"phase 14 {case['name']}: kept {kept}, want "
+                         f"{case['expect']}")
+        if n <= 200 and case["thr"] == 0.5:
+            small.append(nms_cases.sorted_problem(case))
+    # The small cases at threshold 0.5 as the groups of one call, padded
+    # with dead entries to one length.
+    K = max(len(b) for b, _ in small)
+    gb = torch.zeros(len(small), K, 4)
+    gs = torch.full((len(small), K), float(nms_cases.NEG_INF))
+    for g, (b, a) in enumerate(small):
+        gb[g, :len(b)] = torch.from_numpy(b)
+        gs[g, :len(b)] = torch.where(torch.from_numpy(a),
+                                     torch.linspace(1, 0.01, len(b)),
+                                     float(nms_cases.NEG_INF))
+    d, _ = _hold_nms(f"phase 14 {len(small)} groups of {K}: "
+                     "grouped_nms_presorted", nms.grouped_nms_presorted,
+                     (gb.cuda(), gs.cuda(), 0.5, len(small) * K))
+    diffs += d
+
+    timings = {}
+    for (path, name, shapes), (_, args) in NMS_CAPTURED.items():
+        where = f"{path}: {name} {list(shapes[0])}"
+        d, recs = _hold_nms(f"phase 14 {where}", getattr(nms, name), args)
+        diffs += d
+        timings[where] = time_nms(recs[0], where)
+    serving = next(v for k, v in timings.items() if k.startswith("serving"))
+    return {
+        "name": "nms_alive",
+        "route": "cuda",
+        "source": "detectinblur_tpu_torch/csrc/nms.cu",
+        "replaces": "detectinblur_tpu/ops/nms.py:66",
+        "launches": None,
+        "max_abs_err": float(diffs),
+        "ms": serving["ms"],
+        "plain_ms": serving["plain_ms"],
+        "bound_ms": serving["bound_ms"],
+        "bound_by": serving["bound_by"],
+        "library_ms": None,
+        "paths": timings,
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -3380,7 +3702,7 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["roi_align_fwd", "roi_align_bwd"])
+    logs = cuda_build.build(["roi_align_fwd", "roi_align_bwd", "nms"])
     print(f"kernel build (in parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -3394,7 +3716,8 @@ def main():
     errs = check_kernels(bucket, gen)
     bwd_errs = check_bwd_kernel(bucket, gen)
     cuda_gen = torch.Generator(device="cuda").manual_seed(1)
-    _, launches, feats, rois, serving_img_s = run_slice(cuda_gen)
+    _, launches, nms_launches, feats, rois, serving_img_s = run_slice(
+        cuda_gen)
     kernels = time_kernels(feats, rois, launches, errs)
     del feats, rois
     train_launches, levels, captured, train_img_s = run_train(cuda_gen)
@@ -3463,14 +3786,20 @@ def main():
         "roi_align_fwd": {"serving": launches,
                           "train_step": train_launches["roi_align_fwd"],
                           "remedy_train_step": remedy_train["roi_align_fwd"],
-                          "remedy_predict": remedy_predict},
+                          "remedy_predict": remedy_predict["roi_align_fwd"]},
         "roi_align_bwd": {"train_step": train_launches["roi_align_bwd"],
                           "remedy_train_step": remedy_train["roi_align_bwd"]},
+        "nms_alive": {"serving": nms_launches,
+                      "train_step": train_launches["nms_alive"],
+                      "remedy_train_step": remedy_train["nms_alive"],
+                      "remedy_predict": remedy_predict["nms_alive"]},
     }
     for flag, (serve_n, train_n, _, _, _, _) in single.items():
-        by_path["roi_align_fwd"][f"single_map_{flag}_serving"] = serve_n
-        for name, n in train_n.items():
-            by_path[name][f"single_map_{flag}_train_step"] = n
+        for path, counts in ((f"single_map_{flag}_serving", serve_n),
+                             (f"single_map_{flag}_train_step", train_n)):
+            for name, n in counts.items():
+                if n:
+                    by_path[name][path] = n
     for path, counts in entry.items():
         for name, n in counts.items():
             if n:
@@ -3483,6 +3812,9 @@ def main():
         flag: {k: v[3][k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "max_abs_err")}
         for flag, v in single.items()}
+    t0 = time.perf_counter()
+    kernels.append(run_nms_phase(by_path))
+    print(f"phase 14 {time.perf_counter() - t0:.2f} s")
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         k["launches"] = sum(by_path[k["name"]].values())

@@ -1,29 +1,39 @@
 """Exact greedy NMS over padded tensors (port of ``detectinblur_tpu/ops/nms.py``).
 
-Plain torch, no kernel: NMS was plain XLA in the JAX package. Results match
-it exactly: the same keep set, the same order, the same padding and
-``valid`` masks, with ties broken by the lowest index (a stable descending
-sort stands in for ``jax.lax.top_k``, whose tie-break ``torch.topk`` does
-not promise).
+Results match the JAX package exactly: the same keep set, the same order,
+the same padding and ``valid`` masks, with ties broken by the lowest index
+(a stable descending sort stands in for ``jax.lax.top_k``, whose tie-break
+``torch.topk`` does not promise).
 
 Every function takes leading batch dimensions, so a batch of images (or of
 images x pyramid levels) runs as one set of tensor ops.
 
-Host syncs: the within-block fixpoint (see ``_alive_sorted``) checks for
-convergence once every ``_FIXPOINT_CHUNK`` vectorised steps, bounded at the
-block size; everything else is sync-free.
+The greedy pass (``_alive_sorted``, JAX's ``lax.scan`` of blocked
+fixpoints) is the kernel ``csrc/nms.cu`` for CUDA tensors, through
+``nms_alive``, which launches it on the current stream and reads nothing
+back, so NMS on the card never waits on the host. For CPU tensors it is
+the plain blocked version ``_alive_sorted_plain``, which checks each
+block's fixpoint for convergence on the host once every
+``_FIXPOINT_CHUNK`` vectorised steps. The sorts and the rank epilogue are
+torch ops on either device, as JAX left them to XLA.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from detectinblur_tpu_torch.ops.boxes import box_iou
+from detectinblur_tpu_torch.utils import cuda_build
 
 NEG_INF = -1e30
 
 _BLOCK = 128
 _FIXPOINT_CHUNK = 4
+_WORD = 64          # boxes per word of the kernel's suppression bitmask
+_MAX_GRID = 65535   # the mask kernel's grid z extent: one problem a slice
 
 
 def _killed(alive: torch.Tensor, sup: torch.Tensor) -> torch.Tensor:
@@ -32,9 +42,10 @@ def _killed(alive: torch.Tensor, sup: torch.Tensor) -> torch.Tensor:
     return (alive[:, :, None] & sup).any(dim=1)
 
 
-def _alive_sorted(sboxes: torch.Tensor, salive: torch.Tensor,
-                  thr: float) -> torch.Tensor:
-    """Greedy-NMS aliveness over score-DESCENDING boxes, batched.
+def _alive_sorted_plain(sboxes: torch.Tensor, salive: torch.Tensor,
+                        thr: float) -> torch.Tensor:
+    """Greedy-NMS aliveness over score-DESCENDING boxes, batched: the plain
+    torch version of ``csrc/nms.cu``.
 
     ``sboxes`` [M, N, 4], ``salive`` [M, N] bool; among alive entries the
     scores are non-increasing (dead entries may sit anywhere). Blocked as
@@ -74,6 +85,71 @@ def _alive_sorted(sboxes: torch.Tensor, salive: torch.Tensor,
             alive[:, hi:] &= ~cross
         alive[:, lo:hi] = cur
     return alive[:, :N]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = cuda_build.load("nms").nms_alive
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def nms_alive(sboxes: torch.Tensor, salive: torch.Tensor,
+              thr: float) -> torch.Tensor:
+    """The greedy pass of ``_alive_sorted``: ``sboxes`` [M, N, 4] float32
+    and ``salive`` [M, N] bool, contiguous, on one device -> the alive
+    mask [M, N]. For CUDA tensors, the kernel ``csrc/nms.cu`` (a pairwise
+    suppression bitmask in an [M, N, ceil(N/64)] int64 scratch, then one
+    warp per problem walking it in rank order); for tensors on the CPU,
+    ``_alive_sorted_plain``."""
+    if sboxes.device.type == "cpu":
+        return _alive_sorted_plain(sboxes, salive, thr)
+    if sboxes.device.type != "cuda":
+        raise ValueError(f"unsupported device {sboxes.device}")
+    if sboxes.dtype != torch.float32 or salive.dtype != torch.bool:
+        raise TypeError(f"nms_alive takes float32 boxes and a bool mask, got "
+                        f"{sboxes.dtype} and {salive.dtype}")
+    if salive.device != sboxes.device:
+        raise ValueError(f"boxes on {sboxes.device} but the mask on "
+                         f"{salive.device}")
+    if (sboxes.ndim != 3 or sboxes.shape[-1] != 4
+            or salive.shape != sboxes.shape[:2]):
+        raise ValueError(f"expected boxes [M, N, 4] and a mask [M, N], got "
+                         f"{tuple(sboxes.shape)} and {tuple(salive.shape)}")
+    if not (sboxes.is_contiguous() and salive.is_contiguous()) \
+            or sboxes.data_ptr() % 16:
+        raise ValueError("boxes and mask must be contiguous, the boxes "
+                         "16-byte aligned")
+    M, N = salive.shape
+    words = -(-N // _WORD)
+    if M > _MAX_GRID or words * 8 > 48 * 1024:
+        raise ValueError(f"{M} problems of {N} boxes exceed the kernel's "
+                         f"grid or shared memory")
+    if M == 0 or N == 0:
+        return salive.clone()
+    alive = torch.empty_like(salive)
+    mask = torch.empty(M, N, words, dtype=torch.int64, device=sboxes.device)
+    with torch.cuda.device(sboxes.device):
+        err = _kernel()(sboxes.data_ptr(), salive.data_ptr(),
+                        alive.data_ptr(), mask.data_ptr(), M, N, float(thr),
+                        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"nms_alive kernel launch failed: CUDA error {err}")
+    nms_alive.launches += 1
+    return alive
+
+
+nms_alive.launches = 0
+
+
+def _alive_sorted(sboxes: torch.Tensor, salive: torch.Tensor,
+                  thr: float) -> torch.Tensor:
+    """Greedy-NMS aliveness over score-DESCENDING boxes [M, N, 4] (cast to
+    float32, as JAX does), batched: the kernel for CUDA tensors, the plain
+    blocked version for CPU ones (``nms_alive``)."""
+    return nms_alive(sboxes.float().contiguous(), salive.contiguous(), thr)
 
 
 def _select_top(key: torch.Tensor, alive: torch.Tensor, max_outputs: int):

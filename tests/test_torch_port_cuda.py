@@ -502,3 +502,75 @@ def test_profiling_on_the_card(rng, cuda, tmp_path):
     events = json.load(open(tmp_path / "trace" / "trace.json"))["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("roi_align_fwd_kernel" in k for k in kernels), kernels[:20]
+
+
+def _nms_problems(cuda):
+    """(name, sorted boxes [M, N, 4], alive [M, N], thr) on the card: each
+    hard case of ``nms_cases`` alone, and random batches at the RPN's and
+    the postprocess's shapes."""
+    import nms_cases
+
+    out = []
+    for case in nms_cases.cases():
+        b, a = nms_cases.sorted_problem(case)
+        out.append((case["name"], torch.from_numpy(b)[None].to(cuda),
+                    torch.from_numpy(a)[None].to(cuda), case["thr"]))
+    rng = np.random.default_rng(3)
+    for M, N, thr in ((40, 2000, 0.7), (8, 4096, 0.5), (5, 1000, 0.7)):
+        b = np.stack([nms_cases.clustered_boxes(rng, N) for _ in range(M)])
+        a = rng.random((M, N)) > 0.05
+        out.append((f"random_{M}x{N}", torch.from_numpy(b).to(cuda),
+                    torch.from_numpy(a).to(cuda), thr))
+    return out
+
+
+@pytest.mark.gpu
+def test_nms_kernel_matches_plain(cuda):
+    """The kernel's alive masks equal the plain version's bit for bit on
+    the card, each call counted; the public functions on the card equal
+    theirs on the CPU, and run with no host sync."""
+    import nms_cases
+
+    from detectinblur_tpu_torch.ops import nms
+
+    for name, b, a, thr in _nms_problems(cuda):
+        before = nms.nms_alive.launches
+        got = nms.nms_alive(b, a, thr)
+        torch.cuda.synchronize()
+        assert nms.nms_alive.launches == before + 1, name
+        assert torch.equal(got, nms._alive_sorted_plain(b, a, thr)), name
+    for case in nms_cases.cases():
+        boxes, scores = (torch.from_numpy(case["boxes"]),
+                         torch.from_numpy(case["scores"]))
+        cats = case["categories"]
+        cats = torch.from_numpy(cats if cats is not None
+                                else np.ones(len(scores), np.int32))
+        for fn, args in ((nms.nms, (boxes, scores)),
+                         (nms.batched_nms, (boxes, scores, cats))):
+            ref = fn(*args, case["thr"], 100)
+            on_card = [t.to(cuda) for t in args]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = fn(*on_card, case["thr"], 100)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            for g, r in zip(got, ref):
+                assert torch.equal(g.cpu(), r), (case["name"], fn.__name__)
+
+
+@pytest.mark.gpu
+def test_nms_kernel_rejects_bad_inputs(cuda):
+    from detectinblur_tpu_torch.ops import nms
+
+    b = torch.rand(2, 70, 4, device=cuda)
+    a = torch.ones(2, 70, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        nms.nms_alive(b.double(), a, 0.5)
+    with pytest.raises(TypeError):
+        nms.nms_alive(b, a.int(), 0.5)
+    with pytest.raises(ValueError):
+        nms.nms_alive(b.transpose(0, 1).contiguous().transpose(0, 1), a, 0.5)
+    with pytest.raises(ValueError):
+        nms.nms_alive(b, a.cpu(), 0.5)
+    with pytest.raises(ValueError):
+        nms.nms_alive(b, a[:, :60], 0.5)

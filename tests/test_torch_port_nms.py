@@ -1,0 +1,128 @@
+"""The port's NMS (``detectinblur_tpu_torch/ops/nms.py``) held exactly
+against JAX's (``detectinblur_tpu/ops/nms.py``) on the hard cases of
+``tests/nms_cases.py``, on the CPU, where ``_alive_sorted`` runs the plain
+version of the kernel ``csrc/nms.cu``: equal alive masks, and equal
+indices, order, padding and ``valid`` masks from ``nms``,
+``grouped_nms_presorted`` and ``batched_nms``. The kernel itself is held
+against the plain version on the card (``tests/test_torch_port_cuda.py``,
+``chip_smoke.py``)."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
+
+import nms_cases
+from detectinblur_tpu.ops import nms as jax_nms
+from detectinblur_tpu_torch.ops import nms
+
+CASES = {c["name"]: c for c in nms_cases.cases()}
+FIRST = ("iou_equals_thr_0.7", "iou_equals_thr_0.3", "chain_across_64",
+         "chain_at_64_and_128", "clustered_n63", "clustered_n64",
+         "clustered_n65", "clustered_n127", "clustered_n129")
+ORDER = FIRST + tuple(n for n in CASES if n not in FIRST)
+T = torch.from_numpy
+
+
+def _kept(idxs, valid):
+    return np.asarray(idxs)[np.asarray(valid)].tolist()
+
+
+def _jax_alive(sboxes, salive, thr):
+    return np.asarray(jax.jit(jax_nms._alive_sorted, static_argnums=2)(
+        sboxes, salive, thr))
+
+
+@pytest.mark.parametrize("name", ORDER)
+def test_alive_sorted_matches_jax(name):
+    case = CASES[name]
+    sboxes, salive = nms_cases.sorted_problem(case)
+    before = nms.nms_alive.launches
+    got = nms._alive_sorted(T(sboxes)[None], T(salive)[None], case["thr"])
+    assert nms.nms_alive.launches == before    # the CPU runs no kernel
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  _jax_alive(sboxes, salive, case["thr"]))
+
+
+@pytest.mark.parametrize("name", ORDER)
+def test_nms_matches_jax(name):
+    """Every slot, with fewer outputs than boxes, as many, and more
+    (padding)."""
+    case = CASES[name]
+    n = len(case["scores"])
+    for max_out in sorted({max(1, n // 3), n, n + 3}):
+        ji, jv = jax_nms.nms(case["boxes"], case["scores"], case["thr"],
+                             max_out)
+        ti, tv = nms.nms(T(case["boxes"]), T(case["scores"]), case["thr"],
+                         max_out)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    if case["expect"] is not None:
+        assert _kept(ti, tv) == case["expect"]
+    if name.startswith("chain"):
+        assert _kept(ti, tv) == nms_cases.expected_chain(case)
+
+
+def _groups(names):
+    """The named cases as presorted groups of one length (dead tails)."""
+    K = max(len(CASES[n]["scores"]) for n in names)
+    bx = np.zeros((len(names), K, 4), np.float32)
+    sc = np.full((len(names), K), nms_cases.NEG_INF, np.float32)
+    for g, n in enumerate(names):
+        order = np.argsort(-CASES[n]["scores"], kind="stable")
+        bx[g, :len(order)] = CASES[n]["boxes"][order]
+        sc[g, :len(order)] = CASES[n]["scores"][order]
+    return bx, sc
+
+
+@pytest.mark.parametrize("names", [
+    ("iou_equals_thr_0.7", "identical_equal_scores", "zero_area",
+     "all_dead"),
+    ("chain_across_64", "chain_at_64_and_128", "clustered_n65",
+     "clustered_n129"),
+    ("clustered_n1", "clustered_n63", "clustered_n64", "clustered_n127"),
+], ids=["small", "chains", "sizes"])
+def test_grouped_nms_presorted_matches_jax(names):
+    """Groups in one call, as the RPN's (image, level) groups; the
+    threshold is each set's first case's."""
+    bx, sc = _groups(names)
+    thr = CASES[names[0]]["thr"]
+    G, K = sc.shape
+    for max_out in (K, G * K + 5):
+        ji, jv = jax_nms.grouped_nms_presorted(bx, sc, thr, max_out)
+        ti, tv = nms.grouped_nms_presorted(T(bx), T(sc), thr, max_out)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_grouped_nms_presorted_leading_dims_match_jax():
+    """[B, G, K]: each image's groups equal JAX's call on that image."""
+    (bx0, sc0), (bx1, sc1) = (_groups(("clustered_n127", "chain_at_64_and_128")),
+                              _groups(("clustered_n129", "chain_across_64")))
+    bxs, scs = np.stack([bx0, bx1]), np.stack([sc0, sc1])
+    ti, tv = nms.grouped_nms_presorted(T(bxs), T(scs), 0.5, 300)
+    for b in range(2):
+        ji, jv = jax_nms.grouped_nms_presorted(bxs[b], scs[b], 0.5, 300)
+        np.testing.assert_array_equal(ti[b].numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tv[b].numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("name", ["categories_90_canvas_1333",
+                                  "iou_equals_thr_0.7", "all_dead"])
+def test_batched_nms_matches_jax(name):
+    """The coordinate-offset trick, float32 rounding of the shifted boxes
+    included (offsets up to ~1.2e5 on the 1333 canvas)."""
+    case = CASES[name]
+    n = len(case["scores"])
+    cats = case["categories"]
+    if cats is None:
+        cats = np.ones(n, np.int32)
+    for max_out in (100, n + 2):
+        ji, jv = jax_nms.batched_nms(case["boxes"], case["scores"], cats,
+                                     case["thr"], max_out)
+        ti, tv = nms.batched_nms(T(case["boxes"]), T(case["scores"]),
+                                 T(cats), case["thr"], max_out)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
