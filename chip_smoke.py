@@ -21,15 +21,17 @@ Phases (any failure exits non-zero and prints no result):
      Faster R-CNN ResNet50-FPN predict at full width in throughput
      (``default``) precision with the RPN delta head zeroed. Check the
      outputs, prove the path launched the forward kernel and the NMS
-     kernel, list what in predict still synchronizes with the host (none
-     of it in NMS), time it (img/s and ms per stage with CUDA events; img/s
-     with NMS through the kernel and the plain version in turns).
+     kernel, exit if anything in blur + predict synchronizes with the
+     host (sync debug mode "warn"), time it (img/s and ms per stage with
+     CUDA events; img/s with NMS through the kernel and the plain version
+     in turns).
   5. Training, with bench_train.py's protocol: the same batch shape with
      16 random GT boxes per image, blur and PSF-driven GT expansion, then
      the loss, backward and SGD (lr 0.04, 1000 steps per epoch, warmup) of
      a model trained from scratch, ``default`` precision. Prove the step
      launched its three kernels, check the losses and which parameters
-     moved, time it (img/s, ms per stage, peak memory; img/s with NMS
+     moved, list what in the step still synchronizes with the host (not a
+     gate), time it (img/s, ms per stage, peak memory; img/s with NMS
      through the kernel and the plain version in turns).
   6. Time each kernel on its path's own inputs beside its plain version
      and its bound (the forward on the serving and the train rois), and
@@ -57,7 +59,10 @@ Phases (any failure exits non-zero and prints no result):
      and as a one-param blur sweep from the ``.pth``, must launch
      ``roi_align_fwd`` once per image (5 cells for the sweep). Every eval
      must give 19 finite stats with detections scored (AR100 >= 0) and
-     launch ``nms_alive`` twice an image (the RPN's, the postprocess's).
+     launch ``nms_alive`` twice an image (the RPN's, the postprocess's);
+     the eval step of the clean eval and the sweep runs under sync debug
+     mode "warn" and must not synchronize with the host (the loop's
+     readback of the detections lies outside the step).
      Each kernel is held against its plain version on the inputs each CLI
      handed it (one per model bucket and batch shape). The clean eval runs
      again under torch.profiler, for the device's busy share and each
@@ -175,13 +180,17 @@ Phases (any failure exits non-zero and prints no result):
      each hard case of ``tests/nms_cases.py`` (a float32 IoU equal to the
      threshold, identical boxes with equal scores, zero-area boxes, every
      entry dead, N = 1 to 4097, suppression chains across the 64- and
-     128-box boundaries, 90 categories on a 1333 canvas), from
+     128-box boundaries, 90 categories on a 1333 canvas, every box kept at
+     4096, one box that suppresses the rest, an odd word count) and on a
+     card-only case of 16385 boxes (the scan streams its row blocks in
+     column tiles), from
      ``grouped_nms_presorted`` on the small ones as groups, and on what
      the RPN and the postprocess handed the NMS functions in phases 4, 5,
      8 and 11; each kernel call under
      ``torch.cuda.set_sync_debug_mode("error")``. Then the kernel timed on
-     each of those inputs beside the plain version and its bound; every
-     path that runs NMS must have launched it.
+     each of those inputs, whole and its mask and scan kernels apart (the
+     scan's cost a 64-box step), beside the plain version and its bound;
+     every path that runs NMS must have launched it.
 
 The last two lines are a JSON object describing each kernel (its
 ``launches`` summed over the counted runs of every path, one count per
@@ -555,14 +564,13 @@ def _nms_route(plain, record=None):
         nms._alive_sorted = routed
 
 
-def _sync_sites(fn):
-    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``; return
-    {the port's innermost file:line (function) that called a synchronizing
-    CUDA operation: count}."""
+@contextlib.contextmanager
+def _watch_syncs(sites):
+    """While open, ``torch.cuda.set_sync_debug_mode("warn")``: each
+    synchronizing CUDA operation adds one to ``sites`` under the port's
+    innermost file:line (function) that called it."""
     import traceback
     import warnings
-
-    sites = {}
 
     def show(message, *args, **kwargs):
         if "synchronizing CUDA operation" not in str(message):
@@ -581,9 +589,16 @@ def _sync_sites(fn):
         warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            yield
         finally:
             torch.cuda.set_sync_debug_mode(0)
+
+
+def _sync_sites(fn):
+    """Run ``fn`` under ``_watch_syncs``; return its {site: count}."""
+    sites = {}
+    with _watch_syncs(sites):
+        fn()
     torch.cuda.synchronize()
     return sites
 
@@ -663,6 +678,16 @@ def run_train(gen):
     if moved != trainable:
         sys.exit(f"moved != trainable: {sorted(moved ^ trainable)[:5]}")
     del before
+    # What in the train step still waits on the host (listed, not gated),
+    # on a generator of its own so that ``gen``'s stream stays the later
+    # phases'.
+    sites = {}
+    with _watch_syncs(sites):
+        state, _ = step(state, batch, generator=torch.Generator(
+            device="cuda").manual_seed(6))
+    torch.cuda.synchronize()
+    print("train step, synchronizing CUDA operations by the port's "
+          "innermost frame: " + json.dumps(sites))
 
     torch.cuda.reset_peak_memory_stats()
     img_s, rates, state = _step_img_s(step, state, batch, gen)
@@ -805,12 +830,12 @@ def run_slice(gen):
           f"launches {nms_launches}")
     if launches == 0 or nms_launches == 0:
         sys.exit("the main path never launched roi_align_fwd or nms_alive")
-    # What in predict still waits on the host, NMS on the kernel.
+    # Nothing in blur + predict may wait on the host.
     sites = _sync_sites(blur_detect)
     print("serving predict, synchronizing CUDA operations by the port's "
           "innermost frame: " + json.dumps(sites))
-    if any("ops/nms.py" in k for k in sites):
-        sys.exit("NMS synchronized with the host on the card")
+    if sites:
+        sys.exit("serving predict synchronized with the host")
     if det.boxes.shape != (B, 100, 4) or det.scores.shape != (B, 100):
         sys.exit(f"unexpected output shapes {det.boxes.shape} {det.scores.shape}")
     if not (torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()):
@@ -1228,8 +1253,18 @@ def run_entry_points(keep):
                       "s": time.perf_counter() - t0})
         return bank
 
-    def recorded_eval(*args, **kwargs):
-        stats, loop = eval_loop.evaluate_coco(*args, **kwargs)
+    step_syncs = {}
+
+    def recorded_eval(eval_step, *args, **kwargs):
+        def watched(*a, **k):
+            # The step itself, under sync debug "warn": the loop's collect
+            # (the detections' readback, as JAX's device_get) is outside.
+            with _watch_syncs(step_syncs.setdefault(path[0], {})):
+                return eval_step(*a, **k)
+
+        watch = path[0] in ("cli.evaluate clean", "cli.evaluate sweep P1")
+        stats, loop = eval_loop.evaluate_coco(
+            watched if watch else eval_step, *args, **kwargs)
         loops.append(dict(path=path[0], **loop))
         return stats, loop
 
@@ -1295,6 +1330,10 @@ def run_entry_points(keep):
             if cells == 1:
                 clean_stats = got
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print("eval step, synchronizing CUDA operations by the port's "
+              "innermost frame: " + json.dumps(step_syncs))
+        if any(step_syncs.values()):
+            sys.exit("the eval step synchronized with the host")
 
         path[0] = "cli.evaluate clean, profiled"
         _, profiled = profile_eval(clean, loops)
@@ -3583,25 +3622,36 @@ def nms_bound(sboxes, salive, alive):
 
 
 def time_nms(rec, where):
-    """nms_alive alone on one greedy pass's inputs, beside the plain
-    version on the card and the bound."""
+    """nms_alive alone on one greedy pass's inputs, and each of its two
+    kernels alone (``nms_mask_kernel``, then ``nms_scan_kernel`` on the
+    mask it wrote: the scan's ms over its ceil(N/64) dependent steps is
+    the cost of a step), beside the plain version on the card and the
+    bound."""
     from detectinblur_tpu_torch.ops import nms
 
     sboxes, salive, thr, alive = rec
     b, a = sboxes.float().contiguous(), salive.contiguous()
     ms = _cuda_ms(lambda: nms.nms_alive(b, a, thr), 20)
+    lib = nms._library()
+    _, _, args = nms.kernel_args(b, a, thr)
+    mask_ms = _cuda_ms(lambda: lib.nms_mask(*args), 20)
+    scan_ms = _cuda_ms(lambda: lib.nms_scan(*args), 20)
     plain_ms = _cuda_ms(lambda: nms._alive_sorted_plain(b, a, thr), 3)
     bound_ms, bound_by, nbytes, ops, pairs, all_ms = nms_bound(b, a, alive)
     M, N = a.shape
-    out = {"shape": [M, N], "ms": ms, "plain_ms": plain_ms,
+    steps = -(-N // 64)
+    out = {"shape": [M, N], "ms": ms, "mask_ms": mask_ms, "scan_ms": scan_ms,
+           "scan_us_per_step": scan_ms * 1e3 / steps, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "all_pairs_bound_ms": all_ms, "scan_steps": N,
+           "all_pairs_bound_ms": all_ms, "scan_steps": steps,
            "alive_in": int(a.sum()), "kept": int(alive.sum())}
-    print(f"nms_alive on {where} ({M} x {N}, thr {thr}): {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
-          f"({pairs} pairs (kept, later alive), {ops} operations, {nbytes} "
-          f"bytes; all N(N-1)/2 pairs {all_ms:.5f} ms), {N} sequential "
-          f"scan steps, {out['alive_in']} alive in, {out['kept']} kept")
+    print(f"nms_alive on {where} ({M} x {N}, thr {thr}): {ms:.4f} ms (mask "
+          f"kernel {mask_ms:.4f} ms, scan kernel {scan_ms:.4f} ms = "
+          f"{out['scan_us_per_step']:.3f} us a step over {steps} dependent "
+          f"64-box steps), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"by {bound_by} ({pairs} pairs (kept, later alive), {ops} "
+          f"operations, {nbytes} bytes; all N(N-1)/2 pairs {all_ms:.5f} "
+          f"ms), {out['alive_in']} alive in, {out['kept']} kept")
     return out
 
 
@@ -3620,7 +3670,11 @@ def run_nms_phase(by_path):
         sys.exit(f"phase 14: no nms_alive launch on the paths {missing}")
     diffs = 0
     small = []
-    for case in nms_cases.cases():
+    timings = {}
+    # The hard cases, and the card-only one whose row blocks the scan
+    # streams in column tiles (timed too).
+    streamed = nms_cases.streamed_case()
+    for case in nms_cases.cases() + [streamed]:
         n = len(case["scores"])
         boxes = torch.from_numpy(case["boxes"]).cuda()
         scores = torch.from_numpy(case["scores"]).cuda()
@@ -3630,9 +3684,12 @@ def run_nms_phase(by_path):
         for name, args in (("nms", (boxes, scores, case["thr"], n + 3)),
                            ("batched_nms", (boxes, scores, cats, case["thr"],
                                             min(n, 100)))):
-            d, _ = _hold_nms(f"phase 14 {case['name']}: {name}",
-                             getattr(nms, name), args)
+            d, recs = _hold_nms(f"phase 14 {case['name']}: {name}",
+                                getattr(nms, name), args)
             diffs += d
+            if case is streamed and name == "nms":
+                where = f"card-only case: nms [{n}]"
+                timings[where] = time_nms(recs[0], where)
         if case["expect"] is not None:
             idxs, valid = nms.nms(boxes, scores, case["thr"], n + 3)
             kept = idxs[valid].tolist()
@@ -3656,7 +3713,6 @@ def run_nms_phase(by_path):
                      (gb.cuda(), gs.cuda(), 0.5, len(small) * K))
     diffs += d
 
-    timings = {}
     for (path, name, shapes), (_, args) in NMS_CAPTURED.items():
         where = f"{path}: {name} {list(shapes[0])}"
         d, recs = _hold_nms(f"phase 14 {where}", getattr(nms, name), args)

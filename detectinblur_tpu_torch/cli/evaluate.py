@@ -204,7 +204,7 @@ def run_cell(args, model, dataset_val, policy: BlurPolicy, psf_bank,
         dataset_val, 1, policy, psf_bank, shuffle=False,
         source_buckets=source_buckets, num_processes=process_count(),
         process_index=process_index(), drop_last=False,
-        num_workers=args.workers)
+        num_workers=args.workers, pin_memory=model.device.type == "cuda")
     blur = policy.prob > 0
     expand = args.expand_target_boxes and blur
     eval_steps = step_cache if step_cache is not None else {}

@@ -236,7 +236,7 @@ def train(args) -> TrainRun:
         dataset, args.batch_size, policy, psf_bank, shuffle=True,
         hflip_prob=0.5, num_processes=process_count(),
         process_index=process_index(), augmix=augmix,
-        num_workers=args.workers)
+        num_workers=args.workers, pin_memory=device.type == "cuda")
 
     model = load_initial_params(args, build_model(args, device))
     optimizer, schedule = make_optimizer(
@@ -280,7 +280,8 @@ def train(args) -> TrainRun:
                 replace(policy, prob=1.0) if blur else BlurPolicy(prob=0.0),
                 psf_bank if blur else None, shuffle=False,
                 num_processes=process_count(), process_index=process_index(),
-                drop_last=False, num_workers=args.workers)
+                drop_last=False, num_workers=args.workers,
+                pin_memory=device.type == "cuda")
 
             def eval_step(m, batch, generator, _blur=blur):
                 b = (_blur, model_bucket_for_batch(batch.hw))

@@ -60,10 +60,14 @@ class DetectionLoader:
         drop_last: bool = True,
         augmix: Optional[dict] = None,
         num_workers: int = 0,
+        pin_memory: bool = False,
     ):
         """``augmix``: keyword arguments of ``data.augmix.augment_and_mix``
         (``positional``, ``modify_target_boxes``), the --non_pos_aug_mix /
-        --include_pos_aug_mix / --aug_mix_target_expand flags."""
+        --include_pos_aug_mix / --aug_mix_target_expand flags.
+        ``pin_memory``: the background thread pins every tensor of each
+        batch (it needs CUDA), so that the step copies them to the card
+        without waiting on it (``train/engine.py::to_device``)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.policy = policy or BlurPolicy(prob=0.0)
@@ -81,6 +85,7 @@ class DetectionLoader:
         self.drop_last = drop_last
         self.augmix = augmix
         self.num_workers = num_workers
+        self.pin_memory = pin_memory
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -180,10 +185,13 @@ class DetectionLoader:
 
         def emit(lst, bucket):
             items, decs = zip(*lst)
-            return (batching.build_blur_batch(
+            batch = batching.build_blur_batch(
                 list(items), list(decs), self.psf_bank, bucket, self.max_gt,
-                bucket_gt=self.num_processes == 1),
-                bucket, [it["image_id"] for it in items])
+                bucket_gt=self.num_processes == 1)
+            if self.pin_memory:
+                batch = type(batch)(*(t if t is None else t.pin_memory()
+                                      for t in batch))
+            return batch, bucket, [it["image_id"] for it in items]
 
         for item, dec, bucket in self._prepared_items():
             pending[bucket].append((item, dec))

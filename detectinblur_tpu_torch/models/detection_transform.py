@@ -30,6 +30,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from detectinblur_tpu_torch.utils.device import (
+    device_constant,
+    to_device_async,
+)
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -97,14 +102,18 @@ def resize_into_bucket(image: torch.Tensor, hw, scale,
     return resize_valid(image, hw, new_hw, out_shape), new_hw
 
 
+def _stat(values, default, device) -> torch.Tensor:
+    if values is None:
+        return device_constant(default, device, torch.float32)
+    return torch.as_tensor(values, dtype=torch.float32, device=device)
+
+
 def normalize_image(image: torch.Tensor, mean=None, std=None) -> torch.Tensor:
     """(image - mean) / std over the trailing channel axis, ImageNet's
-    statistics unless ``mean`` and ``std`` [3] are given."""
-    mean = torch.as_tensor(IMAGENET_MEAN if mean is None else mean,
-                           dtype=torch.float32, device=image.device)
-    std = torch.as_tensor(IMAGENET_STD if std is None else std,
-                          dtype=torch.float32, device=image.device)
-    return (image - mean) / std
+    statistics (one cached copy per device) unless ``mean`` and ``std``
+    [3] are given."""
+    return ((image - _stat(mean, IMAGENET_MEAN, image.device))
+            / _stat(std, IMAGENET_STD, image.device))
 
 
 def resize_boxes(boxes: torch.Tensor, orig_hw: torch.Tensor,
@@ -134,7 +143,7 @@ def preprocess_batch(
     to /32, is zeroed and every image reports that size (JAX :167-174).
 
     Returns (batched [B, Ho, Wo, 3] float32, new_hw [B, 2] int64 on the
-    images' device).
+    images' device, copied there without a host sync).
     """
     Ho, Wo = out_shape
     B = images.shape[0]
@@ -154,4 +163,4 @@ def preprocess_batch(
         out[:, mh:] = 0.0
         out[:, :, mw:] = 0.0
         new_hw = np.tile(np.asarray([[mh, mw]], np.int64), (B, 1))
-    return out, torch.as_tensor(new_hw, device=device)
+    return out, to_device_async(new_hw, device)

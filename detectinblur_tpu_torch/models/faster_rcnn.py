@@ -79,6 +79,7 @@ from detectinblur_tpu_torch.utils.device import (
     check_precision,
     resolve_device,
     set_fp32_math,
+    to_device_async,
 )
 
 
@@ -150,8 +151,7 @@ class TwoStageDetector(nn.Module):
         boxes, scores, labels, det_valid = postprocess_detections(
             logits.reshape(B, P, -1), deltas.reshape(B, P, -1), proposals,
             valid, new_hw, self.cfg.box)
-        orig_hw = torch.as_tensor(hw, device=boxes.device)
-        boxes = resize_boxes(boxes, new_hw, orig_hw)
+        boxes = resize_boxes(boxes, new_hw, to_device_async(hw, boxes.device))
         return Detections(boxes, scores, labels, det_valid)
 
     # ---------------------------------------------------------- inference
@@ -216,7 +216,7 @@ class TwoStageDetector(nn.Module):
         batched, new_hw = self.preprocess(images.to(device), hw, bucket,
                                           means, stds)
         gt = resize_boxes(gt_boxes.to(device).float(),
-                          torch.as_tensor(hw, device=device), new_hw)
+                          to_device_async(hw, device), new_hw)
         gt_labels = gt_labels.to(device)
         gt_valid = gt_valid.to(device).bool()
 

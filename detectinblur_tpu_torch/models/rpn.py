@@ -33,6 +33,7 @@ from detectinblur_tpu_torch.ops.boxes import (
     encode_boxes,
 )
 from detectinblur_tpu_torch.ops.nms import NEG_INF, grouped_nms_presorted
+from detectinblur_tpu_torch.utils.device import to_device_async
 
 
 class RPNHead(nn.Module):
@@ -254,7 +255,8 @@ def level_anchors(features: Sequence[torch.Tensor],
                   first_level_stride: int = 4,
                   anchor_sizes: Tuple[Tuple[float, ...], ...] = ANCHOR_SIZES,
                   anchor_ratios: Tuple[Tuple[float, ...], ...] = ASPECT_RATIOS):
-    """(anchors [sum_A, 4] on the features' device, anchors per level).
+    """(anchors [sum_A, 4] on the features' device, copied there without
+    a host sync, anchors per level).
     The FPN detector's levels start at stride 4 with one size a level;
     a single-map detector passes its one level's stride and a one-level
     spec of every size (JAX ``run_rpn``'s ``anchor_sizes`` :264)."""
@@ -263,8 +265,8 @@ def level_anchors(features: Sequence[torch.Tensor],
                   int(features[0].shape[2] * first_level_stride))
     anchors_np = grid_anchors(feat_shapes, image_size, anchor_sizes,
                               anchor_ratios)
-    anchors = torch.from_numpy(np.concatenate(anchors_np, axis=0))
-    return (anchors.to(features[0].device),
+    anchors = np.concatenate(anchors_np, axis=0)
+    return (to_device_async(anchors, features[0].device),
             tuple(a.shape[0] for a in anchors_np))
 
 

@@ -126,7 +126,7 @@ def expand_boxes_by_psf(boxes: torch.Tensor, psfs: torch.Tensor,
         raise ValueError("expand is only defined for 128-wide PSFs")
     mask = psfs > 0
     coord = torch.arange(128, dtype=torch.float32, device=psfs.device)
-    big = torch.tensor(1e9, device=psfs.device)
+    big = 1e9
     xs = torch.where(mask, coord[None, None, :], big)
     ys = torch.where(mask, coord[None, :, None], big)
     left = xs.amin(dim=(1, 2)) - 63.0

@@ -9,11 +9,11 @@ Every function takes leading batch dimensions, so a batch of images (or of
 images x pyramid levels) runs as one set of tensor ops.
 
 The greedy pass (``_alive_sorted``, JAX's ``lax.scan`` of blocked
-fixpoints) is the kernel ``csrc/nms.cu`` for CUDA tensors, through
-``nms_alive``, which launches it on the current stream and reads nothing
-back, so NMS on the card never waits on the host. For CPU tensors it is
-the plain blocked version ``_alive_sorted_plain``, which checks each
-block's fixpoint for convergence on the host once every
+fixpoints) is the two kernels of ``csrc/nms.cu`` for CUDA tensors,
+through ``nms_alive``, which launches them on the current stream and
+reads nothing back, so NMS on the card never waits on the host. For CPU
+tensors it is the plain blocked version ``_alive_sorted_plain``, which
+checks each block's fixpoint for convergence on the host once every
 ``_FIXPOINT_CHUNK`` vectorised steps. The sorts and the rank epilogue are
 torch ops on either device, as JAX left them to XLA.
 """
@@ -88,21 +88,48 @@ def _alive_sorted_plain(sboxes: torch.Tensor, salive: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = cuda_build.load("nms").nms_alive
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    """``csrc/nms.cu`` built and loaded: ``nms_alive`` (both kernels),
+    ``nms_mask`` and ``nms_scan`` (one each, for timing them apart), all
+    ``(boxes, alive_in, alive_out, mask, M, N, stride, thr, stream) ->
+    CUDA error``."""
+    lib = cuda_build.load("nms")
+    for name in ("nms_alive", "nms_mask", "nms_scan"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def mask_stride(n: int) -> int:
+    """Row stride, in 64-bit words, of the kernel's suppression bitmask:
+    ceil(n/64) rounded up to even, so that every row starts 16-byte
+    aligned for the scan's bulk copies."""
+    words = -(-n // _WORD)
+    return words + words % 2
+
+
+def kernel_args(sboxes: torch.Tensor, salive: torch.Tensor, thr: float):
+    """(alive out, the scratch bitmask, the C entry points' arguments) for
+    inputs that ``nms_alive`` has checked, on the current stream."""
+    M, N = salive.shape
+    stride = mask_stride(N)
+    alive = torch.empty_like(salive)
+    mask = torch.empty(M, N, stride, dtype=torch.int64, device=sboxes.device)
+    return alive, mask, (sboxes.data_ptr(), salive.data_ptr(),
+                         alive.data_ptr(), mask.data_ptr(), M, N, stride,
+                         float(thr), torch.cuda.current_stream().cuda_stream)
 
 
 def nms_alive(sboxes: torch.Tensor, salive: torch.Tensor,
               thr: float) -> torch.Tensor:
     """The greedy pass of ``_alive_sorted``: ``sboxes`` [M, N, 4] float32
     and ``salive`` [M, N] bool, contiguous, on one device -> the alive
-    mask [M, N]. For CUDA tensors, the kernel ``csrc/nms.cu`` (a pairwise
-    suppression bitmask in an [M, N, ceil(N/64)] int64 scratch, then one
-    warp per problem walking it in rank order); for tensors on the CPU,
+    mask [M, N]. For CUDA tensors, the kernels of ``csrc/nms.cu`` (a
+    pairwise suppression bitmask in an [M, N, ``mask_stride(N)``] int64
+    scratch, then one block per problem walking it in rank order, its row
+    blocks staged in shared memory); for tensors on the CPU,
     ``_alive_sorted_plain``."""
     if sboxes.device.type == "cpu":
         return _alive_sorted_plain(sboxes, salive, thr)
@@ -123,20 +150,16 @@ def nms_alive(sboxes: torch.Tensor, salive: torch.Tensor,
         raise ValueError("boxes and mask must be contiguous, the boxes "
                          "16-byte aligned")
     M, N = salive.shape
-    words = -(-N // _WORD)
-    if M > _MAX_GRID or words * 8 > 48 * 1024:
-        raise ValueError(f"{M} problems of {N} boxes exceed the kernel's "
-                         f"grid or shared memory")
+    if M > _MAX_GRID:
+        raise ValueError(f"{M} problems exceed the mask kernel's grid")
     if M == 0 or N == 0:
         return salive.clone()
-    alive = torch.empty_like(salive)
-    mask = torch.empty(M, N, words, dtype=torch.int64, device=sboxes.device)
     with torch.cuda.device(sboxes.device):
-        err = _kernel()(sboxes.data_ptr(), salive.data_ptr(),
-                        alive.data_ptr(), mask.data_ptr(), M, N, float(thr),
-                        torch.cuda.current_stream().cuda_stream)
+        alive, _, args = kernel_args(sboxes, salive, thr)
+        err = _library().nms_alive(*args)
     if err:
-        raise RuntimeError(f"nms_alive kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"nms_alive kernel launch failed: CUDA error {err}"
+                           " (1: N beyond the scan's shared memory)")
     nms_alive.launches += 1
     return alive
 

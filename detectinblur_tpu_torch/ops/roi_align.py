@@ -12,10 +12,12 @@ single-map detector pools every roi from its one level at that level's
 scale (1/32): the same geometry with the level fixed at 0.
 
 ``roi_geometry`` computes each roi's level and its sample indices and
-weights ONCE, in torch. Both the plain version here (the CPU path and the
-kernel's oracle) and the CUDA kernel (``ops/roi_align_cuda.py``) read that
-same table, so they can never disagree on a level boundary or a sample
-position; they differ only in how they sum.
+weights ONCE, in torch, from the level scales and sizes cached on the
+device (``utils/device.py::device_constant``), so it never waits on the
+host. Both the plain version here (the CPU path and the kernel's oracle)
+and the CUDA kernel (``ops/roi_align_cuda.py``) read that same table, so
+they can never disagree on a level boundary or a sample position; they
+differ only in how they sum.
 
 The plain version is the straightforward gather form (4 corner rows per
 sample point), chunked over rois to bound its memory; it is not the TPU's
@@ -29,6 +31,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence
 
 import torch
+
+from detectinblur_tpu_torch.utils.device import device_constant
 
 LEVEL_SCALES = (0.25, 0.125, 0.0625, 0.03125)
 
@@ -87,14 +91,15 @@ def roi_geometry(boxes: torch.Tensor, level_shapes: Sequence[Sequence[int]],
                            dtype=torch.float32, device=device)
     elif len(level_shapes) == 4 and spatial_scale is None:
         level = assign_levels(boxes)
-        scale = torch.tensor(LEVEL_SCALES, device=device)[level.long()]
+        scale = device_constant(LEVEL_SCALES, device,
+                                torch.float32)[level.long()]
     else:
         raise ValueError(f"expected 4 FPN levels, or one level with its "
                          f"scale; got {len(level_shapes)} levels and scale "
                          f"{spatial_scale}")
     lvl = level.long()
-    sizes = torch.tensor([list(hw) for hw in level_shapes], device=device,
-                         dtype=torch.int32)
+    sizes = device_constant(tuple(tuple(int(v) for v in hw)
+                                  for hw in level_shapes), device, torch.int32)
     Hl = sizes[lvl, 0]
     Wl = sizes[lvl, 1]
 

@@ -45,7 +45,10 @@ from detectinblur_tpu_torch.train.estimator_engine import (
     apply_corruptions,
 )
 from detectinblur_tpu_torch.train.state import TrainState
-from detectinblur_tpu_torch.utils.device import DEFAULT_PRECISION
+from detectinblur_tpu_torch.utils.device import (
+    DEFAULT_PRECISION,
+    to_device_async,
+)
 
 
 class BlurBatch(NamedTuple):
@@ -71,9 +74,12 @@ class BlurBatch(NamedTuple):
 
 
 def to_device(batch: BlurBatch, device) -> BlurBatch:
-    """The batch on ``device``; ``hw`` stays on the host, where the
+    """The batch on ``device``, each field in one copy that does not make
+    the host wait (``to_device_async``: the loader pins the fields when
+    the model is on a card); ``hw`` stays on the host, where the
     preprocess and the model bucket read it."""
-    return BlurBatch(*(t if name == "hw" or t is None else t.to(device)
+    return BlurBatch(*(t if name == "hw" or t is None
+                       else to_device_async(t, device)
                        for name, t in zip(BlurBatch._fields, batch)))
 
 
@@ -103,14 +109,15 @@ def apply_blur_and_expand(batch: BlurBatch, expand_target_boxes: bool,
     psfs = batch.psfs
     if dilate_psf_sigma is not None:
         psfs = dilate_psfs(psfs, dilate_psf_sigma.to(psfs.device))
+    hw = to_device_async(batch.hw, batch.images.device)
     blurred = batched_blur(batch.images.permute(0, 3, 1, 2), psfs,
                            batch.blurring, exact=precision == "highest",
-                           hw=batch.hw).permute(0, 2, 3, 1)
+                           hw=hw).permute(0, 2, 3, 1)
     images = apply_corruptions(blurred, add_noise, noise_level, add_block,
                                add_jpeg, generator, corruption_draws)
     gt_boxes = batch.gt_boxes
     if expand_target_boxes:
-        hw = torch.as_tensor(batch.hw, device=gt_boxes.device)
+        hw = hw.to(gt_boxes.device)
         gt_boxes = expand_boxes_by_psf(gt_boxes, psfs, batch.blurring,
                                        hw[:, 0], hw[:, 1])
     return batch._replace(images=images, gt_boxes=gt_boxes, psfs=psfs)

@@ -13,6 +13,13 @@ Precision mirrors ``detectinblur_tpu/models/resnet.py:40-56``:
 The process-wide default is read once, here, from
 ``DETECTINBLUR_PRECISION``; the model takes precision as an explicit
 config field.
+
+Host values reach the card without making the host wait on it:
+``device_constant`` keeps one copy of a constant table per (device,
+dtype), and ``to_device_async`` copies a per-call host value from pinned
+memory with ``non_blocking=True``. A pageable copy to the card blocks the
+host until the stream drains, which JAX's asynchronous device puts never
+do.
 """
 
 from __future__ import annotations
@@ -66,3 +73,47 @@ def resolve_device(device=None) -> torch.device:
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
     return dev
+
+
+def _full_device(device) -> torch.device:
+    """``device`` with its index: plain ``cuda`` is the current card, so
+    that each process of a group keys its own (``parallel/dist.py``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def to_device_async(value, device) -> torch.Tensor:
+    """``value`` (a host array, a CPU tensor, or a tensor already on a
+    card) as a tensor on ``device``, of the dtype ``torch.as_tensor``
+    gives it. To a card, a host value goes from pinned memory with
+    ``non_blocking=True``, so the host does not wait on the stream: a
+    tensor the loader pinned as it is, anything else from a fresh pinned
+    copy (never the caller's buffer, which the host may overwrite before
+    the copy runs; PyTorch's caching host allocator keeps the pinned
+    block until the copy is done). On the CPU nothing is pinned."""
+    device = torch.device(device)
+    if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+        return value.to(device, non_blocking=True)
+    host = torch.as_tensor(value)
+    if device.type != "cuda":
+        return host.to(device)
+    if not host.is_pinned():
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+_CONSTANTS = {}
+
+
+def device_constant(values, device, dtype: torch.dtype) -> torch.Tensor:
+    """The constant table ``values`` (nested tuples of numbers) as a
+    ``dtype`` tensor on ``device``, made once per (values, device, dtype)
+    with ``to_device_async`` and shared by every later call: callers
+    must not write to it."""
+    key = (values, _full_device(device), dtype)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = to_device_async(torch.tensor(values, dtype=dtype),
+                                          key[1])
+    return _CONSTANTS[key]

@@ -79,6 +79,24 @@ def cases(seed=0):
         add(f"clustered_n{n}", clustered_boxes(rng, n), s, 0.5)
     add("chain_across_64", *_chain(60, 70, 140, 200), 0.5)
     add("chain_at_64_and_128", *_chain(63, 64, 128, 200), 0.5)
+    # Every box kept at the postprocess's 4096: nothing overlaps, so every
+    # row of every word is ORed into every later word (the kernel's most
+    # OR work).
+    n = 4096
+    add("all_kept_n4096", _far(n), np.linspace(1.0, 0.01, n,
+                                               dtype=np.float32), 0.5,
+        expect=list(range(n)))
+    # One box that suppresses all the rest: the others are jittered copies
+    # of it (IoU > 0.6) across 16 words, every one scored below it.
+    n = 1000
+    boxes = np.tile(np.float32([[100, 100, 200, 200]]), (n, 1))
+    boxes[1:] += rng.uniform(-5, 5, (n - 1, 4)).astype(np.float32)
+    s = rng.uniform(0.1, 0.9, n).astype(np.float32)
+    s[0] = 0.95
+    add("one_suppresses_all", boxes, s, 0.5, expect=[0])
+    # 5 words, an odd count: the kernel pads its bitmask rows to 6.
+    add("odd_words_n320", clustered_boxes(rng, 320), rng.random(320).astype(
+        np.float32), 0.5)
     # The postprocess's pool: 4096 candidates over 90 categories on a
     # 1333-pixel canvas, shifted by category * (max coordinate + 1), so
     # the offsets reach ~1.2e5 and float32 rounds the shifted boxes.
@@ -89,6 +107,19 @@ def cases(seed=0):
     add("categories_90_canvas_1333", b, s, 0.5,
         categories=rng.integers(1, 91, n).astype(np.int32))
     return out
+
+
+def streamed_case(seed=1, n=16385):
+    """A card-only case (the CPU parity tests would be slow on it): at
+    16385 boxes a row block of the kernel's bitmask (257 words a row) is
+    wider than a staged tile, so the scan streams each in column tiles.
+    Clustered at threshold 0.5, 10% of the entries dead."""
+    rng = np.random.default_rng(seed)
+    s = rng.random(n).astype(np.float32)
+    s[rng.random(n) < 0.1] = NEG_INF
+    return dict(name=f"streamed_n{n}",
+                boxes=clustered_boxes(rng, n, canvas=4000.0, clusters=200),
+                scores=s, thr=0.5, categories=None, expect=None)
 
 
 def expected_chain(case):

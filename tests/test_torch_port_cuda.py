@@ -506,12 +506,13 @@ def test_profiling_on_the_card(rng, cuda, tmp_path):
 
 def _nms_problems(cuda):
     """(name, sorted boxes [M, N, 4], alive [M, N], thr) on the card: each
-    hard case of ``nms_cases`` alone, and random batches at the RPN's and
+    hard case of ``nms_cases`` alone, the card-only case whose row blocks
+    the scan streams in column tiles, and random batches at the RPN's and
     the postprocess's shapes."""
     import nms_cases
 
     out = []
-    for case in nms_cases.cases():
+    for case in nms_cases.cases() + [nms_cases.streamed_case()]:
         b, a = nms_cases.sorted_problem(case)
         out.append((case["name"], torch.from_numpy(b)[None].to(cuda),
                     torch.from_numpy(a)[None].to(cuda), case["thr"]))
@@ -574,3 +575,44 @@ def test_nms_kernel_rejects_bad_inputs(cuda):
         nms.nms_alive(b, a.cpu(), 0.5)
     with pytest.raises(ValueError):
         nms.nms_alive(b, a[:, :60], 0.5)
+
+
+@pytest.mark.gpu
+def test_predict_and_eval_step_never_wait_on_the_card(cuda):
+    """Serving predict (``hw`` a host array) and the eval step, clean and
+    with blur and expanded GT, on a batch pinned as the loader pins it:
+    under ``torch.cuda.set_sync_debug_mode("error")`` any synchronizing
+    CUDA call raises, so neither may make one, neither on the first call
+    (the model's caches cold) nor on the next."""
+    from detectinblur_tpu_torch.models.faster_rcnn import (
+        FasterRCNN,
+        FasterRCNNConfig,
+    )
+    from detectinblur_tpu_torch.train.engine import BlurBatch, make_eval_step
+
+    batch, _ = _remedy_inputs()
+    batch = BlurBatch(*(t if t is None else t.pin_memory() for t in batch))
+    model = FasterRCNN(FasterRCNNConfig(min_size=96, max_size=128),
+                       device=cuda, seed=0)
+    bucket = (96, 128)
+    images, hw = batch.images.to(cuda), batch.hw.numpy()
+    steps = (make_eval_step(model, bucket),
+             make_eval_step(model, bucket, blur_eval=True,
+                            expand_target_boxes=True))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def run():
+        out = [model.predict(images, hw, bucket)]
+        out += [step(model, batch, gen)[0] for step in steps]
+        return out
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+        dets = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for d in dets:
+        assert d.boxes.shape == (2, 100, 4)
+        assert torch.isfinite(d.boxes).all()
