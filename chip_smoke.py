@@ -177,20 +177,26 @@ Phases (any failure exits non-zero and prints no result):
  14. The greedy-NMS kernel (``csrc/nms.cu``, ``ops/nms.py::nms_alive``)
      held bit for bit against its plain version on the card: equal alive
      masks and equal (idxs, valid) from ``nms`` and ``batched_nms`` on
-     each hard case of ``tests/nms_cases.py`` (a float32 IoU equal to the
-     threshold, identical boxes with equal scores, zero-area boxes, every
-     entry dead, N = 1 to 4097, suppression chains across the 64- and
-     128-box boundaries, 90 categories on a 1333 canvas, every box kept at
-     4096, one box that suppresses the rest, an odd word count) and on a
-     card-only case of 16385 boxes (the scan streams its row blocks in
-     column tiles), from
+     each hard case of ``tests/nms_cases.py`` (float32 IoUs one ulp below,
+     at and above the threshold, identical boxes with equal scores,
+     zero-area boxes, every entry dead, N = 1 to 4097, 1% and 10% alive
+     as a prefix and scattered, dead words between alive ones, one alive
+     box in the last ragged word, NaN coordinates in a dead and an alive
+     box, suppression chains across the 64- and 128-box boundaries, 90
+     categories on a 1333 canvas, every box kept at 4096, one box that
+     suppresses the rest, an odd word count) and on a card-only case of
+     16385 boxes (the scan streams its row blocks in column tiles), from
      ``grouped_nms_presorted`` on the small ones as groups, and on what
      the RPN and the postprocess handed the NMS functions in phases 4, 5,
      8 and 11; each kernel call under
-     ``torch.cuda.set_sync_debug_mode("error")``. Then the kernel timed on
-     each of those inputs, whole and its mask and scan kernels apart (the
-     scan's cost a 64-box step), beside the plain version and its bound;
-     every path that runs NMS must have launched it.
+     ``torch.cuda.set_sync_debug_mode("error")``. On each greedy pass the
+     mask kernel alone (``nms_mask``) is held word for word against
+     ``_suppression_mask_plain`` on the words it must write (alive rows,
+     from each row's own word on). Then the kernel timed on each of those
+     inputs, whole and its mask and scan kernels apart (the scan's cost a
+     64-box step), beside the plain version, its bound, and the mask
+     kernel's own bound (alive pairs) and share; every path that runs NMS
+     must have launched it.
 
 The last two lines are a JSON object describing each kernel (its
 ``launches`` summed over the counted runs of every path, one count per
@@ -3593,15 +3599,50 @@ def _hold_nms(what, fn, args):
     masks = [(g[3], r[3]) for g, r in zip(got_rec, ref_rec)]
     diff = sum(int((g != r).sum()) for g, r in masks)
     same_out = all(torch.equal(g, r) for g, r in zip(got, ref))
+    held = [_hold_mask(rec) for rec in got_rec]
+    covered, words_diff, scan_diff = (sum(h[i] for h in held)
+                                      for i in range(3))
     ok = (launched == len(got_rec) == len(ref_rec) == 1 and diff == 0
-          and same_out)
+          and same_out and words_diff == 0 and scan_diff == 0)
     print(f"{what}: alive {[tuple(g.shape) for g, _ in masks]}, kept "
           f"{sum(int(g.sum()) for g, _ in masks)}, {diff} entries differ, "
           f"(idxs, valid) {'equal' if same_out else 'DIFFER'}, {launched} "
-          f"launch, no host sync: {'ok' if ok else 'FAILED'}")
+          f"launch, no host sync; mask kernel alone on a scratch of ones: "
+          f"{words_diff} of {covered} covered words differ, the scan on it: "
+          f"{scan_diff} alive entries differ: {'ok' if ok else 'FAILED'}")
     if not ok:
         sys.exit(f"{what}: the NMS kernel disagrees with its plain version")
     return diff, got_rec
+
+
+def _hold_mask(rec):
+    """``nms_mask`` (the mask kernel alone) on one greedy pass's inputs,
+    its scratch first filled with ones, held word for word against
+    ``_suppression_mask_plain`` on the words it must write
+    (``_covered_words``: the alive rows', from each row's own word on);
+    then ``nms_scan`` on that scratch, whose unwritten words still hold
+    ones, held against the pass's alive mask. Returns (covered words,
+    differing words, differing alive entries); a failed launch counts
+    every word or entry it should have given as differing."""
+    from detectinblur_tpu_torch.ops import nms
+
+    sboxes, salive, thr, want = rec
+    b, a = sboxes.float().contiguous(), salive.contiguous()
+    alive, mask, args = nms.kernel_args(b, a, thr)
+    mask.fill_(-1)
+    covered = nms._covered_words(a)
+    n = int(covered.sum())
+    err = nms._library().nms_mask(*args)
+    if err:
+        print(f"nms_mask launch failed: CUDA error {err}")
+        return n, max(n, 1), 0
+    got = torch.where(covered, mask, 0)
+    words = int((got != nms._suppression_mask_plain(b, a, thr)).sum())
+    err = nms._library().nms_scan(*args)
+    if err:
+        print(f"nms_scan launch failed: CUDA error {err}")
+        return n, words, max(int(a.numel()), 1)
+    return n, words, int((alive != want).sum())
 
 
 def nms_bound(sboxes, salive, alive):
@@ -3621,11 +3662,51 @@ def nms_bound(sboxes, salive, alive):
             _bound(nbytes, all_ops)[0])
 
 
+def nms_mask_bound(sboxes, salive):
+    """(bound ms, bound_by, bytes, ops, pairs) of the mask kernel alone on
+    these inputs: the pairs it needs, alive r < alive c of one problem, at
+    ``NMS_OPS_PER_PAIR`` float32 operations, plus 3 an alive box for its
+    area; the alive boxes and the whole alive mask read once, and the
+    words it must write (from each alive row's own word on) written
+    once."""
+    M, N = salive.shape
+    a = salive.long()
+    later = a.flip(1).cumsum(1).flip(1) - a
+    pairs = int((a * later).sum())
+    own_on = -(-N // 64) - torch.arange(N, device=a.device) // 64
+    nbytes = 16 * int(a.sum()) + M * N + 8 * int((a * own_on).sum())
+    ops = NMS_OPS_PER_PAIR * pairs + 3 * int(a.sum())
+    return (*_bound(nbytes, ops), nbytes, ops, pairs)
+
+
+def _graph_ms(make, n=20, reps=10):
+    """Device ms of one call of the launch that ``make()`` returns (a
+    callable of no arguments that launches on the stream current when
+    ``make`` ran): ``n`` calls captured in a CUDA graph, replayed ``reps``
+    times between CUDA events. A kernel of a few microseconds launched
+    back to back from Python runs at the host's launch rate; replayed
+    from a graph it does not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        launch = make()
+        if launch():
+            sys.exit("_graph_ms: the launch failed")
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="relaxed"):
+            for _ in range(n):
+                launch()
+    torch.cuda.current_stream().wait_stream(side)
+    return _cuda_ms(graph.replay, reps) / n
+
+
 def time_nms(rec, where):
-    """nms_alive alone on one greedy pass's inputs, and each of its two
-    kernels alone (``nms_mask_kernel``, then ``nms_scan_kernel`` on the
-    mask it wrote: the scan's ms over its ceil(N/64) dependent steps is
-    the cost of a step), beside the plain version on the card and the
+    """nms_alive alone on one greedy pass's inputs (CUDA events over
+    calls of the wrapper), and each of its two kernels alone, replayed
+    from a CUDA graph (``nms_mask_kernel``, then ``nms_scan_kernel`` on
+    the mask it wrote: the scan's ms over its ceil(N/64) dependent steps
+    is the cost of a step), beside the plain version on the card and the
     bound."""
     from detectinblur_tpu_torch.ops import nms
 
@@ -3633,25 +3714,43 @@ def time_nms(rec, where):
     b, a = sboxes.float().contiguous(), salive.contiguous()
     ms = _cuda_ms(lambda: nms.nms_alive(b, a, thr), 20)
     lib = nms._library()
-    _, _, args = nms.kernel_args(b, a, thr)
-    mask_ms = _cuda_ms(lambda: lib.nms_mask(*args), 20)
-    scan_ms = _cuda_ms(lambda: lib.nms_scan(*args), 20)
+
+    def launcher(name):
+        def make():
+            out = nms.kernel_args(b, a, thr)   # kept alive by the closure
+            if name == "nms_scan" and lib.nms_mask(*out[2]):
+                sys.exit("time_nms: nms_mask failed")
+            fn = getattr(lib, name)
+            return lambda: fn(*out[2])
+        return make
+
+    mask_ms = _graph_ms(launcher("nms_mask"))
+    scan_ms = _graph_ms(launcher("nms_scan"))
     plain_ms = _cuda_ms(lambda: nms._alive_sorted_plain(b, a, thr), 3)
     bound_ms, bound_by, nbytes, ops, pairs, all_ms = nms_bound(b, a, alive)
+    (mask_bound_ms, mask_bound_by, mask_bytes, mask_ops,
+     alive_pairs) = nms_mask_bound(b, a)
     M, N = a.shape
     steps = -(-N // 64)
     out = {"shape": [M, N], "ms": ms, "mask_ms": mask_ms, "scan_ms": scan_ms,
            "scan_us_per_step": scan_ms * 1e3 / steps, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "all_pairs_bound_ms": all_ms, "scan_steps": steps,
-           "alive_in": int(a.sum()), "kept": int(alive.sum())}
-    print(f"nms_alive on {where} ({M} x {N}, thr {thr}): {ms:.4f} ms (mask "
-          f"kernel {mask_ms:.4f} ms, scan kernel {scan_ms:.4f} ms = "
+           "all_pairs_bound_ms": all_ms, "mask_bound_ms": mask_bound_ms,
+           "mask_bound_by": mask_bound_by,
+           "mask_share": mask_bound_ms / mask_ms, "alive_pairs": alive_pairs,
+           "scan_steps": steps, "alive_in": int(a.sum()),
+           "kept": int(alive.sum())}
+    print(f"nms_alive on {where} ({M} x {N}, thr {thr}): {ms:.4f} ms (in "
+          f"a CUDA graph: mask kernel {mask_ms:.4f} ms, scan kernel "
+          f"{scan_ms:.4f} ms = "
           f"{out['scan_us_per_step']:.3f} us a step over {steps} dependent "
           f"64-box steps), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"by {bound_by} ({pairs} pairs (kept, later alive), {ops} "
           f"operations, {nbytes} bytes; all N(N-1)/2 pairs {all_ms:.5f} "
-          f"ms), {out['alive_in']} alive in, {out['kept']} kept")
+          f"ms), {out['alive_in']} alive in, {out['kept']} kept; mask "
+          f"kernel's own bound {mask_bound_ms:.5f} ms by {mask_bound_by} "
+          f"({alive_pairs} alive pairs, {mask_ops} operations, {mask_bytes} "
+          f"bytes), {out['mask_share']:.1%} of it")
     return out
 
 

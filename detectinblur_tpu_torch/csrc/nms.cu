@@ -15,11 +15,48 @@
 // Design: two kernels on the caller's stream, and a scratch bitmask the
 // wrapper allocates ([M, N, stride] 64-bit words, stride = ceil(N/64)
 // rounded up to even).
-//   (a) nms_mask_kernel: a grid over (column word, row word, problem). The
-//       column word's 64 boxes and their areas sit in shared memory; thread
-//       t takes row r = 64 * row word + t and writes one word, bit j set when
-//       IoU(r, c) > thr for c = 64 * column word + j > r. Blocks left of the
-//       diagonal exit at once: the scan never reads those words.
+//   (a) nms_mask_kernel writes the suppression words. Its contract, for
+//       problem m, row r and column word cw >= floor(r/64): bit j of word
+//       cw of row r is set exactly when c = 64 cw + j > r, c is alive in
+//       alive_in, and IoU(r, c) > thr (below). It writes that word for
+//       every alive row r. Words of dead rows, and words left of a row's
+//       own word, may stay unwritten, because the scan never reads one
+//       into a result: the resolver takes row r's diagonal and next word
+//       only when r is kept (nms_scan_kernel, `killed` at :600-601 and
+//       `carry` at :611-612), the workers OR only kept rows (`mine`, :630),
+//       and kept rows are alive. Dead columns' bits are 0, so a word equals
+//       the plain one (ops/nms.py::_suppression_mask_plain) bit for bit.
+//       The grid holds only tiles with cw >= rw: block x of a problem is
+//       one column word and up to 4 row words rw <= cw, a warp each
+//       (numbered column word by column word, mask_blocks_before), and
+//       grid y runs over the problems (looping past 65535, so M has no
+//       cap). Each block reads its column word's and its row words' alive
+//       bytes from alive_in in one round trip (a ballot a 32 bytes) and
+//       exits when no row is alive; alive rows against a word with no
+//       alive column get 0 and no IoU. Otherwise it stages the column
+//       word's 64 boxes, their areas (each made once) and their bits in
+//       shared memory, a box a thread (the area is made in the registers
+//       the box passed through; a bulk copy would need a second pass over
+//       shared memory for it). Each lane takes two rows, r and r + 32:
+//         1. the filter, the hot loop: a pair is a candidate when both
+//            boxes have a positive width and height and none of rz - cx,
+//            cz - rx, rw - cy, cw - ry has its sign bit set, i.e. is < 0
+//            (or -0). 4 subtractions a pair on the FMA pipe, an OR and
+//            two funnel shifts that collect the sign bits into the words,
+//            skipping groups of 8 columns no row of the warp may take. No
+//            NaN test: with positive widths and heights no difference is
+//            NaN, and a pair whose IoU exceeds thr >= 0 has
+//            min(rz, cz) > max(rx, cx) and min(rw, cw) > max(ry, cy),
+//            so all four differences are > 0: the filter only rules out
+//            pairs whose test is false, whatever the inputs (NaN or
+//            infinite coordinates included). When 0 > thr every alive
+//            pair is a candidate (inter = 0 then passes).
+//         2. the exact test, on the candidates only: candidate_test() for
+//            thr >= 2^-20 (no NaN test on the coordinates, two fused
+//            multiply-adds against thr and the float after it, the
+//            division only between the two), else overlaps(), the general
+//            test with max_nan / min_nan and __fdiv_rn. Each lane walks
+//            its own candidates, lowest bit first by 32-bit halves.
 //   (b) nms_scan_kernel: one block of 10 warps per problem walks the 64-box
 //       words in order. Word k's row block (rows 64k .. 64k+63, from column
 //       word k rounded down to even) is contiguous per row in the scratch;
@@ -35,16 +72,21 @@
 //       bits), and hands the kept bits to 8 worker warps, which OR them
 //       into the removed bits of words k + 2 on (row slices merged by
 //       shared-memory atomics) while the resolver goes on to word k + 1.
-// Why: the scan's first version (one warp a problem, every row word fetched
-// from device memory in the step that needs it, 8 loads in flight) cost
-// ~10 us a word on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 14):
-// 0.68 ms for the eval postprocess's 1 x 4096, 0.56-0.60 ms for the train
-// RPN's 40 x 2000, 0.18 ms for the serving RPN's 40 x 1000, at 0.2% of its
-// bound. Its bytes are few (the 4096-box upper triangle is ~1 MB); the
-// latency of each step's dependent device-memory round trips set its time.
-// Here a step's reads are shared-memory reads of a tile that landed while
-// earlier words were resolved, and its critical path is the resolve and
-// one OR-reduction; the rest of the ORs overlap the next word's resolve.
+// Why: a block a 64 x 64 tile over the full words x words grid, with
+// every pair NaN-tested and divided, ran at 7-12% of even its all-pairs
+// bound (0.1201 ms on the serving postprocess's 8 x 4096 pool with 1.3%
+// alive, 0.1677 ms on the train RPN's 40 x 2000; chip_smoke.py phase 14,
+// an H100 80GB HBM3 at 700 W). On this card a float comparison, a min or
+// max, a select, a logic op and a shift run at half the rate of an add
+// (64 lanes a clock an SM), so the filter keeps its per-pair work to
+// subtractions plus three such ops. What is left of the time: the exact
+// tests where boxes overlap (the RPN's coarse levels), each lane walking
+// its own candidates, and the launch of the grid's blocks, the floor of
+// the mostly dead postprocess.
+// The scan's first version (one warp a problem, row words fetched from
+// device memory in the step that needs them) cost ~10 us a word, latency
+// bound; here a step's reads are shared-memory reads of a tile that
+// landed while earlier words were resolved.
 // Why two kernels and not a kernel per block of 128 as in JAX: the pairwise
 // test is parallel and is what costs operations, so it gets the whole card;
 // the greedy order is sequential but touches only bits, so one block walks
@@ -57,25 +99,28 @@
 // lt, 0); inter = wh0 * wh1; union = (area_r + area_c) - inter; inter /
 // max(union, 1e-12f); compared with the threshold in float32. max, min and
 // clamp propagate NaN as torch.maximum / torch.clamp and jnp.maximum do, so
-// a NaN coordinate removes nothing on either side. The scan reads the same
-// bits in another order: OR is commutative and idempotent, and the
-// fixpoint of a word is unique (the greedy answer), so its result is the
-// plain version's bit for bit.
+// a NaN coordinate removes nothing on either side. The filter drops only
+// pairs whose test is false, and candidate_test() answers as overlaps() on
+// the pairs it lets through (its note), so the words are the one-pass
+// test's. The
+// scan reads the same bits in another order: OR is commutative and
+// idempotent, and the fixpoint of a word is unique (the greedy answer), so
+// its result is the plain version's bit for bit.
 //
-// What bounds it on this card: operations. At the train RPN's 40 problems of
-// 2000 boxes the pairwise test is 40 x 2000 x 1999 / 2 = 80M IoUs of ~14
-// float32 operations, ~17 us at 67 TFLOP/s, against 1.4 MB of boxes and
-// masks (0.4 us at 3.35 TB/s); chip_smoke.py counts only the pairs (kept r,
-// alive c > r) a run's answer needs. No roofline counts the scan's chain of
-// ceil(N/64) dependent steps (64 for the postprocess's 4096 candidates,
-// 32 and 16 for the RPN's 2000 and 1000): its time is that chain's length
-// times the cost of a step, which chip_smoke.py phase 14 reports: 0.58-1.05
-// us a step on the paths' inputs with whole row blocks (0.067 ms for the
-// eval's 1 x 4096 pool, 0.031 ms for the train RPN's 40 x 2000), 4.9 us a
-// step in column tiles (16385 boxes), on an H100 80GB HBM3 at 700 W. The
-// mask kernel then takes most of the RPN's time (0.168 ms of the train
-// RPN's 0.198): its IoU division runs only for pairs that intersect.
+// What bounds it on this card. The mask: operations, counted for the pairs
+// it needs, alive r < alive c of a problem, at 14 float32 operations, plus
+// 3 a box for its area (chip_smoke.py phase 14 prints this bound and the
+// share beside the kernel's time); its bytes are the boxes, alive_in and
+// the covered words of the alive rows. Where few boxes are alive (the
+// serving postprocess: ~55 of 4096 a problem) the bytes bound it and the
+// launch and the per-block alive reads set its time. The scan: no roofline
+// counts its chain of ceil(N/64) dependent steps (64 for the postprocess's
+// 4096 candidates, 32 and 16 for the RPN's 2000 and 1000); its time is
+// that chain's length times the cost of a step, which phase 14 reports:
+// 0.58-1.05 us a step with whole row blocks, 4.9 us in column tiles
+// (16385 boxes), on an H100 80GB HBM3 at 700 W.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -91,6 +136,10 @@ constexpr int kScanThreads = 32 * (2 + kWorkers);  // resolver, loader, OR
 constexpr int kMaxTile = 64;              // column words of a staged tile
 constexpr int kMaxSlots = 8;              // staged tiles in flight
 constexpr int kMinWholeSlots = 4;         // least whole row blocks in flight
+constexpr int kRowWarps = 4;              // row words of a mask block, a warp each
+constexpr int kMaskThreads = 32 * kRowWarps;
+constexpr int kMaxGridY = 65535;
+static_assert(kMaskThreads >= kWord, "a mask block stages a box a thread");
 static_assert(kRowsPerWorker * kWorkers == kWord, "row slices cover a word");
 
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -118,31 +167,251 @@ __device__ __forceinline__ bool overlaps(float4 r, float area_r, float4 c,
   return __fdiv_rn(inter, max_nan(uni, 1e-12f)) > thr;
 }
 
-__global__ void __launch_bounds__(kWord)
-nms_mask_kernel(const float4* __restrict__ boxes, u64* __restrict__ mask,
-                int n, int stride, float thr) {
-  const int cw = blockIdx.x, rw = blockIdx.y, t = threadIdx.x;
-  if (cw < rw) return;
-  const float4* pb = boxes + static_cast<size_t>(blockIdx.z) * n;
-  __shared__ float4 cbox[kWord];
-  __shared__ float carea[kWord];
-  const int c = cw * kWord + t;
-  if (c < n) {
-    const float4 b = pb[c];
-    cbox[t] = b;
-    carea[t] = area(b);
-  }
-  __syncthreads();
-  const int r = rw * kWord + t;
-  if (r >= n) return;
-  const float4 rb = pb[r];
-  const float ra = area(rb);
-  const int ncols = min(kWord, n - cw * kWord);
+// OR of a warp's 64-bit values, the same on every lane.
+__device__ __forceinline__ u64 warp_or(u64 v) {
+  const unsigned hi = __reduce_or_sync(kFull, static_cast<unsigned>(v >> 32));
+  return (static_cast<u64>(hi) << 32)
+         | __reduce_or_sync(kFull, static_cast<unsigned>(v));
+}
+
+// IoU(r, c) > thr for a pair that passed the mask kernel's filter, when
+// thr >= 2^-20 and thr_next is the float after thr: 0 (no), 1 (yes) or 2
+// (decide by candidate_divide), the same answer as overlaps() with no NaN
+// test on the coordinates and no division away from the threshold. Why it
+// is the same:
+//  - every coordinate of the pair is a number, and min(rz, cz) >=
+//    max(rx, cx), min(rw, cw) >= max(ry, cy) (the filter, and both boxes
+//    of a positive width and height): max_nan / min_nan are fmaxf /
+//    fminf, w and h are >= 0 and the clamps at 0 change at most the sign
+//    of a zero, which leaves the answer no (0 > thr is false). inter =
+//    w * h is >= 0, +inf, or NaN as 0 * inf; a NaN inter makes the union
+//    NaN. A NaN union gives no in overlaps() (NaN > thr is false) and
+//    here. With the union a number, u = fmaxf(union, 1e-12) =
+//    max_nan(union, 1e-12) >= 1e-12 or +inf.
+//  - RN(inter / u) > thr holds when inter / u >= thr_next (RN is
+//    monotone and thr_next is a float) and fails when inter / u <= thr;
+//    only inter / u strictly between thr and thr_next needs the division.
+//  - __fmaf_rn(-t, u, inter) = RN(inter - t u) has the sign of the exact
+//    inter - t u for t in {thr, thr_next}: t >= 2^-20 and u >= 1e-12 >
+//    2^-40 are normal, so t u is a multiple of 2^-43 2^-63 = 2^-106 and
+//    inter a multiple of 2^-149 (denormals included); a nonzero difference
+//    is then at least 2^-149 in size, which RN neither flushes to 0 nor
+//    (being at most FLT_MAX in size) takes to infinity. So sign(inter -
+//    t u) decides inter / u against t exactly.
+//  - u = +inf: inter - t u = -inf (inter finite): no, as inter / inf = 0
+//    is not > thr; inter = +inf: NaN, no, as inf / inf is NaN; u finite
+//    and inter = +inf: +inf, yes, as inf / u = inf > thr; inter = +-0:
+//    -t u < 0, no, as 0 > thr is false.
+// The float32 IoUs one ulp below, at and above 0.5 and 0.7 in
+// tests/nms_cases.py sit on this boundary.
+__device__ __forceinline__ float candidate_inter(float4 r, float4 c) {
+  return __fmul_rn(__fsub_rn(fminf(r.z, c.z), fmaxf(r.x, c.x)),
+                   __fsub_rn(fminf(r.w, c.w), fmaxf(r.y, c.y)));
+}
+
+__device__ __forceinline__ int candidate_test(float4 r, float area_r,
+                                              float4 c, float area_c,
+                                              float thr, float thr_next) {
+  const float inter = candidate_inter(r, c);
+  const float uni = __fsub_rn(__fadd_rn(area_r, area_c), inter);
+  const float u = fmaxf(uni, 1e-12f);
+  const bool above = __fmaf_rn(-thr, u, inter) > 0.0f;
+  const bool clear = __fmaf_rn(-thr_next, u, inter) >= 0.0f;
+  return uni != uni || !above ? 0 : (clear ? 1 : 2);
+}
+
+// RN(inter / u) > thr for a pair candidate_test() left undecided.
+__device__ __noinline__ bool candidate_divide(float4 r, float area_r,
+                                              float4 c, float area_c,
+                                              float thr) {
+  const float inter = candidate_inter(r, c);
+  const float uni = __fsub_rn(__fadd_rn(area_r, area_c), inter);
+  return __fdiv_rn(inter, fmaxf(uni, 1e-12f)) > thr;
+}
+
+// Mask blocks of one problem before column word cw: column word c has
+// c / kRowWarps + 1 blocks, one for each kRowWarps row words rw <= c.
+__host__ __device__ inline long long mask_blocks_before(long long cw) {
+  const long long q = cw / kRowWarps, s = cw % kRowWarps;
+  return cw + kRowWarps * q * (q - 1) / 2 + s * q;
+}
+
+// The threshold's constants, the same for every pair.
+struct Threshold {
+  float thr, next;  // thr, and the float after it
+  bool zero_hit;    // 0 > thr: a pair with no intersection is a hit
+  bool fast;        // thr >= 2^-20: candidate_test() is exact
+};
+
+// The block's column word in shared memory: its boxes, their areas, the
+// alive columns and those of a positive width and height (low and high
+// halves).
+struct ColumnWord {
+  float4 box[kWord];
+  float area[kWord];
+  unsigned alive[2];
+  unsigned pos[2];
+};
+
+// A row's bits in the block's column word: the exact test on each of its
+// candidates, lowest first, by 32-bit halves.
+__device__ __forceinline__ u64 exact_bits(u64 cand, float4 rb, float ra,
+                                          const ColumnWord& cc,
+                                          const Threshold& t) {
   u64 bits = 0;
-  for (int j = cw == rw ? t + 1 : 0; j < ncols; ++j) {
-    if (overlaps(rb, ra, cbox[j], carea[j], thr)) bits |= 1ull << j;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    unsigned got = 0;
+    for (unsigned x = static_cast<unsigned>(cand >> (32 * h)); x;) {
+      const unsigned low = x & (0u - x);
+      x ^= low;
+      const int j = 32 * h + 31 - __clz(low);
+      const float4 cb = cc.box[j];
+      const float ca = cc.area[j];
+      int s;
+      if (t.fast) {
+        s = candidate_test(rb, ra, cb, ca, t.thr, t.next);
+        if (s == 2) s = candidate_divide(rb, ra, cb, ca, t.thr);
+      } else {
+        s = overlaps(rb, ra, cb, ca, t.thr);
+      }
+      if (s) got |= low;
+    }
+    bits |= static_cast<u64>(got) << (32 * h);
   }
-  mask[(static_cast<size_t>(blockIdx.z) * n + r) * stride + cw] = bits;
+  return bits;
+}
+
+// Column word cw against row word rw of one problem (one warp; rw > cw:
+// none), lane l taking rows r0 = 64 rw + l and r1 = r0 + 32. Every return
+// before the second __syncthreads is the same for the whole block.
+__device__ __forceinline__ void mask_tile(
+    const float4* __restrict__ pb, const uint8_t* __restrict__ ain,
+    u64* __restrict__ pm, int n, int stride, int cw, int rw,
+    const Threshold& t, ColumnWord& cc) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = rw * kWord + lane, r1 = r0 + 32;
+  const int c = cw * kWord + threadIdx.x;   // warps 0 and 1: the columns
+  // Three loads at once (indices clamped, then masked): one round trip.
+  const bool a0 = ain[min(r0, n - 1)], a1 = ain[min(r1, n - 1)];
+  const bool ac = ain[min(c, n - 1)];
+  const bool mine = rw <= cw;
+  const unsigned alo = __ballot_sync(kFull, mine && r0 < n && a0);
+  const unsigned ahi = __ballot_sync(kFull, mine && r1 < n && a1);
+  const bool live0 = (alo >> lane) & 1, live1 = (ahi >> lane) & 1;
+  if (warp < 2) {
+    const unsigned bits = __ballot_sync(kFull, c < n && ac);
+    if (lane == 0) cc.alive[warp] = bits;
+  }
+  if (!__syncthreads_or(alo | ahi)) return;   // no alive row in the block
+  const u64 cols = (static_cast<u64>(cc.alive[1]) << 32) | cc.alive[0];
+  u64* w0 = pm + static_cast<size_t>(r0) * stride + cw;
+  u64* w1 = pm + static_cast<size_t>(r1) * stride + cw;
+  if (cols == 0) {   // no alive column: the alive rows' words are 0
+    if (live0) *w0 = 0;
+    if (live1) *w1 = 0;
+    return;
+  }
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (warp < 2) {
+    const float4 b = c < n ? pb[c] : zero;
+    cc.box[threadIdx.x] = b;
+    cc.area[threadIdx.x] = area(b);
+    const unsigned pos = __ballot_sync(kFull, b.z > b.x && b.w > b.y);
+    if (lane == 0) cc.pos[warp] = pos;
+  }
+  const float4 b0 = live0 ? pb[r0] : zero, b1 = live1 ? pb[r1] : zero;
+  __syncthreads();
+  if (!(alo | ahi)) return;
+
+  // A row may take only alive columns after it (all of a later word, the
+  // bits above its own in its own word); unless 0 > thr, only columns of a
+  // positive width and height, from a row of a positive width and height.
+  const u64 col_ok = cols & (t.zero_hit ? ~0ull
+      : (static_cast<u64>(cc.pos[1]) << 32) | cc.pos[0]);
+  const bool diag = cw == rw;
+  const u64 after0 = diag ? ~0ull << lane << 1 : ~0ull;
+  const u64 after1 = diag ? (lane == 31 ? 0 : ~0ull << (lane + 33)) : ~0ull;
+  const bool ok0 = live0 && (t.zero_hit || (b0.z > b0.x && b0.w > b0.y));
+  const bool ok1 = live1 && (t.zero_hit || (b1.z > b1.x && b1.w > b1.y));
+  u64 cand0 = ok0 ? col_ok & after0 : 0;
+  u64 cand1 = ok1 ? col_ok & after1 : 0;
+  if (!t.zero_hit) {
+    // The filter, the hot loop: a pair is a candidate unless one of rz -
+    // cx, cz - rx, rw - cy, cw - ry has its sign bit set, i.e. is < 0 (or
+    // -0); with both boxes of a positive width and height, none is NaN.
+    // Per pair 4 subtractions on the FMA pipe, an OR of three and two
+    // funnel shifts that move the sign bits into the words (columns taken
+    // from the highest down); no NaN test, no division. A group of 8
+    // columns that no row of the warp may take is skipped.
+    const u64 need = warp_or(cand0 | cand1);
+    unsigned s0[2] = {0, 0}, t0[2] = {0, 0}, s1[2] = {0, 0}, t1[2] = {0, 0};
+#pragma unroll
+    for (int g = kWord / 8 - 1; g >= 0; --g) {
+      const int h = g / 4;
+      if (((need >> (8 * g)) & 0xff) == 0) {
+        s0[h] <<= 8;
+        t0[h] <<= 8;
+        s1[h] <<= 8;
+        t1[h] <<= 8;
+        continue;
+      }
+#pragma unroll
+      for (int k = 7; k >= 0; --k) {
+        const float4 cb = cc.box[8 * g + k];
+        s0[h] = __funnelshift_l(__float_as_uint(__fsub_rn(b0.z, cb.x))
+                                | __float_as_uint(__fsub_rn(cb.z, b0.x))
+                                | __float_as_uint(__fsub_rn(b0.w, cb.y)),
+                                s0[h], 1);
+        t0[h] = __funnelshift_l(__float_as_uint(__fsub_rn(cb.w, b0.y)),
+                                t0[h], 1);
+        s1[h] = __funnelshift_l(__float_as_uint(__fsub_rn(b1.z, cb.x))
+                                | __float_as_uint(__fsub_rn(cb.z, b1.x))
+                                | __float_as_uint(__fsub_rn(b1.w, cb.y)),
+                                s1[h], 1);
+        t1[h] = __funnelshift_l(__float_as_uint(__fsub_rn(cb.w, b1.y)),
+                                t1[h], 1);
+      }
+    }
+    cand0 &= ~((static_cast<u64>(s0[1] | t0[1]) << 32) | (s0[0] | t0[0]));
+    cand1 &= ~((static_cast<u64>(s1[1] | t1[1]) << 32) | (s1[0] | t1[0]));
+  }
+  // The exact test on the candidates alone, each lane walking its own.
+  const u64 bits0 = cand0 ? exact_bits(cand0, b0, area(b0), cc, t) : 0;
+  const u64 bits1 = cand1 ? exact_bits(cand1, b1, area(b1), cc, t) : 0;
+  if (live0) *w0 = bits0;
+  if (live1) *w1 = bits1;
+}
+
+// Grid: x the (column word, row-word group) blocks of a problem, only
+// groups that reach the diagonal; y the problems, each block looping over
+// every gridDim.y-th one.
+__global__ void __launch_bounds__(kMaskThreads, 8)
+nms_mask_kernel(const float4* __restrict__ boxes,
+                const uint8_t* __restrict__ alive_in, u64* __restrict__ mask,
+                int m_count, int n, int stride, float thr) {
+  __shared__ ColumnWord cc;
+  const int words = (n + kWord - 1) / kWord;
+  const long long b = blockIdx.x;
+  int lo = 0, hi = words - 1;   // the column word: the last cw whose blocks
+  while (lo < hi) {             // start at or before this one
+    const int mid = (lo + hi + 1) / 2;
+    if (mask_blocks_before(mid) <= b) lo = mid; else hi = mid - 1;
+  }
+  const int cw = lo;
+  const int rw = static_cast<int>(b - mask_blocks_before(cw)) * kRowWarps
+                 + threadIdx.x / 32;
+  Threshold t;
+  t.thr = thr;
+  t.next = __int_as_float(__float_as_int(thr) + 1);
+  t.zero_hit = 0.0f > thr;
+  t.fast = thr >= 0x1p-20f;
+  for (int m = blockIdx.y; m < m_count; m += gridDim.y) {
+    const size_t base = static_cast<size_t>(m) * n;
+    mask_tile(boxes + base, alive_in + base, mask + base * stride, n, stride,
+              cw, rw, t, cc);
+    __syncthreads();   // the next problem restages the column word
+  }
 }
 
 // The scan's shared-memory plan, made on the host for the kernel.
@@ -229,13 +498,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];"
       :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
-}
-
-// OR of a warp's 64-bit values, the same on every lane.
-__device__ __forceinline__ u64 warp_or(u64 v) {
-  const unsigned hi = __reduce_or_sync(kFull, static_cast<unsigned>(v >> 32));
-  return (static_cast<u64>(hi) << 32)
-         | __reduce_or_sync(kFull, static_cast<unsigned>(v));
 }
 
 __global__ void __launch_bounds__(kScanThreads)
@@ -412,15 +674,15 @@ bool stride_ok(int n, int stride) {
 extern "C" int nms_mask(const void* boxes, const void* alive_in,
                         void* alive_out, void* mask, int m, int n, int stride,
                         float thr, void* stream) {
-  (void)alive_in;
   (void)alive_out;
   if (m == 0 || n == 0) return cudaSuccess;
   if (!stride_ok(n, stride)) return cudaErrorInvalidValue;
-  const int words = (n + kWord - 1) / kWord;
-  nms_mask_kernel<<<dim3(words, words, m), kWord, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(boxes), static_cast<u64*>(mask), n, stride,
-      thr);
+  const long long blocks = mask_blocks_before((n + kWord - 1) / kWord);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks), m < kMaxGridY ? m : kMaxGridY);
+  nms_mask_kernel<<<grid, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(boxes), static_cast<const uint8_t*>(alive_in),
+      static_cast<u64*>(mask), m, n, stride, thr);
   return cudaGetLastError();
 }
 

@@ -33,7 +33,7 @@ NEG_INF = -1e30
 _BLOCK = 128
 _FIXPOINT_CHUNK = 4
 _WORD = 64          # boxes per word of the kernel's suppression bitmask
-_MAX_GRID = 65535   # the mask kernel's grid z extent: one problem a slice
+_PLAIN_ROWS = 512   # rows of the plain suppression mask made at a time
 
 
 def _killed(alive: torch.Tensor, sup: torch.Tensor) -> torch.Tensor:
@@ -110,6 +110,45 @@ def mask_stride(n: int) -> int:
     return words + words % 2
 
 
+def _covered_words(salive: torch.Tensor) -> torch.Tensor:
+    """[M, N, ``mask_stride(N)``] bool: the words of the suppression
+    bitmask that the mask kernel must write, column words cw >= r // 64
+    (up to ceil(N/64)) of every alive row r. The scan reads no other word
+    into its result (the note of ``csrc/nms.cu``)."""
+    N = salive.shape[1]
+    cw = torch.arange(mask_stride(N), device=salive.device)
+    rw = torch.arange(N, device=salive.device) // _WORD
+    span = (cw[None, :] >= rw[:, None]) & (cw[None, :] < -(-N // _WORD))
+    return salive[:, :, None] & span
+
+
+def _suppression_mask_plain(sboxes: torch.Tensor, salive: torch.Tensor,
+                            thr: float) -> torch.Tensor:
+    """The plain version of ``csrc/nms.cu``'s mask kernel: int64 [M, N,
+    ``mask_stride(N)``] words from ``box_iou``, bit j of word cw of row r
+    set when c = 64 cw + j > r, c is alive and IoU(r, c) > thr, on the
+    words ``_covered_words`` names; every other word is 0. Only the tests
+    and ``chip_smoke.py`` call it."""
+    M, N = salive.shape
+    words = -(-N // _WORD)
+    dev = salive.device
+    b = sboxes.float()
+    idx = torch.arange(N, device=dev)
+    # Bit 63 weighs -2**63: the sum is the word's two's complement.
+    weight = torch.tensor([1 << j for j in range(_WORD - 1)]
+                          + [-(1 << (_WORD - 1))], device=dev)
+    out = torch.zeros(M, N, mask_stride(N), dtype=torch.int64, device=dev)
+    for lo in range(0, N, _PLAIN_ROWS):
+        hi = min(lo + _PLAIN_ROWS, N)
+        sup = ((box_iou(b[:, lo:hi], b) > thr) & salive[:, None, :]
+               & (idx[lo:hi, None] < idx[None, :]))
+        sup = torch.cat([sup, sup.new_zeros(M, hi - lo, words * _WORD - N)],
+                        dim=-1)
+        out[:, lo:hi, :words] = (sup.view(M, hi - lo, words, _WORD).long()
+                                 * weight).sum(-1)
+    return out.masked_fill_(~_covered_words(salive), 0)
+
+
 def kernel_args(sboxes: torch.Tensor, salive: torch.Tensor, thr: float):
     """(alive out, the scratch bitmask, the C entry points' arguments) for
     inputs that ``nms_alive`` has checked, on the current stream."""
@@ -126,11 +165,12 @@ def nms_alive(sboxes: torch.Tensor, salive: torch.Tensor,
               thr: float) -> torch.Tensor:
     """The greedy pass of ``_alive_sorted``: ``sboxes`` [M, N, 4] float32
     and ``salive`` [M, N] bool, contiguous, on one device -> the alive
-    mask [M, N]. For CUDA tensors, the kernels of ``csrc/nms.cu`` (a
-    pairwise suppression bitmask in an [M, N, ``mask_stride(N)``] int64
-    scratch, then one block per problem walking it in rank order, its row
-    blocks staged in shared memory); for tensors on the CPU,
-    ``_alive_sorted_plain``."""
+    mask [M, N]. For CUDA tensors, the kernels of ``csrc/nms.cu`` (the
+    pairwise suppression words of the alive rows in an [M, N,
+    ``mask_stride(N)``] int64 scratch, ``_suppression_mask_plain``'s on
+    the words ``_covered_words`` names, then one block per problem walking
+    them in rank order, its row blocks staged in shared memory); for
+    tensors on the CPU, ``_alive_sorted_plain``."""
     if sboxes.device.type == "cpu":
         return _alive_sorted_plain(sboxes, salive, thr)
     if sboxes.device.type != "cuda":
@@ -150,8 +190,6 @@ def nms_alive(sboxes: torch.Tensor, salive: torch.Tensor,
         raise ValueError("boxes and mask must be contiguous, the boxes "
                          "16-byte aligned")
     M, N = salive.shape
-    if M > _MAX_GRID:
-        raise ValueError(f"{M} problems exceed the mask kernel's grid")
     if M == 0 or N == 0:
         return salive.clone()
     with torch.cuda.device(sboxes.device):

@@ -4,9 +4,11 @@
 them (CPU), ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py`` the
 kernel against its plain version (card). Each case is a dict: ``name``,
 ``boxes`` [N, 4] float32 xyxy, ``scores`` [N] float32 (``NEG_INF`` marks a
-dead entry), ``thr``, ``categories`` [N] int32 or None, and ``expect``:
-the keep list in selection order where it is known by construction, else
-None.
+dead entry), ``thr``, ``categories`` [N] int32 or None, ``expect``: the
+keep list in selection order where it is known by construction, else
+None, and ``presorted``: True where the scores of the alive entries
+already descend and the dead ones sit among them, as the RPN's min-size
+filter leaves them (``sorted_problem`` keeps that order).
 """
 
 import numpy as np
@@ -44,14 +46,59 @@ def _chain(a_rank, b_rank, c_rank, n):
     return boxes, scores
 
 
+def iou_f32(a, b):
+    """IoU of two xyxy boxes in float32, in ``box_iou``'s order of
+    operations."""
+    a, b = np.float32(a), np.float32(b)
+    area_a = (a[2] - a[0]) * (a[3] - a[1])
+    area_b = (b[2] - b[0]) * (b[3] - b[1])
+    wh = np.maximum(np.minimum(a[2:], b[2:]) - np.maximum(a[:2], b[:2]),
+                    np.float32(0))
+    inter = wh[0] * wh[1]
+    return inter / np.maximum(area_a + area_b - inter, np.float32(1e-12))
+
+
+def _ulp_pairs(thr, height):
+    """Three pairs, 100 apart along x, whose float32 IoUs are one ulp
+    below ``thr``, equal to it, and one ulp above: A = [0, 0, 10,
+    height], B = A cut to a height near thr * height (IoU = B's height /
+    A's, rounded). Scores descend A, B, A, B, A, B: greedy keeps all but
+    the last B."""
+    t = np.float32(thr)
+    h = np.float32(thr * height)
+    boxes = []
+    for k, (cut, want) in enumerate((
+            (np.nextafter(h, np.float32(0)), np.nextafter(t, np.float32(0))),
+            (h, t), (np.nextafter(h, np.float32(2 * height)),
+                     np.nextafter(t, np.float32(1))))):
+        a = np.float32([100 * k, 0, 100 * k + 10, height])
+        b = np.float32([100 * k, 0, 100 * k + 10, cut])
+        assert iou_f32(a, b) == want, (thr, k, iou_f32(a, b), want)
+        boxes += [a, b]
+    return np.stack(boxes), np.linspace(0.9, 0.4, 6, dtype=np.float32)
+
+
+def _sparse(rng, n, alive_frac, presorted):
+    """Clustered boxes with ``alive_frac`` of the entries alive: scores
+    that descend with dead entries among them (``presorted``), or random
+    ones (sorting puts the dead last, as ``nms()`` does)."""
+    dead = rng.random(n) >= alive_frac
+    s = (np.linspace(1.0, 0.01, n, dtype=np.float32) if presorted
+         else rng.random(n).astype(np.float32))
+    s[dead] = NEG_INF
+    return clustered_boxes(rng, n), s
+
+
 def cases(seed=0):
     rng = np.random.default_rng(seed)
     out = []
 
-    def add(name, boxes, scores, thr, categories=None, expect=None):
+    def add(name, boxes, scores, thr, categories=None, expect=None,
+            presorted=False):
         out.append(dict(name=name, boxes=np.asarray(boxes, np.float32),
                         scores=np.asarray(scores, np.float32), thr=thr,
-                        categories=categories, expect=expect))
+                        categories=categories, expect=expect,
+                        presorted=presorted))
 
     # IoU 70/100 rounds to float32(0.7) exactly: not strictly greater, so
     # both stay. At 0.3 the pair's float32 IoU exceeds the double 0.3, so
@@ -106,6 +153,50 @@ def cases(seed=0):
     s[rng.random(n) < 0.3] = NEG_INF
     add("categories_90_canvas_1333", b, s, 0.5,
         categories=rng.integers(1, 91, n).astype(np.int32))
+    # Float32 IoUs one ulp below, at and one ulp above each threshold of
+    # the paths: only the last suppresses.
+    add("iou_ulp_around_thr_0.5", *_ulp_pairs(0.5, 10), 0.5,
+        expect=[0, 1, 2, 3, 4])
+    add("iou_ulp_around_thr_0.7", *_ulp_pairs(0.7, 1000), 0.7,
+        expect=[0, 1, 2, 3, 4])
+    # Few alive among 4097, as a prefix after the sort and scattered in
+    # place: the mask kernel skips dead row and column words.
+    for frac in (0.01, 0.1):
+        for presorted in (False, True):
+            add(f"alive_{frac:g}_{'scattered' if presorted else 'prefix'}"
+                "_n4097", *_sparse(rng, 4097, frac, presorted), 0.5,
+                presorted=presorted)
+    # Alive words 0, 1, 5 and 10 of 11, every entry of the words between
+    # dead: the survivors of words 0 and 1 suppress across them.
+    n = 704
+    b = clustered_boxes(rng, n, clusters=4)
+    s = np.linspace(1.0, 0.01, n, dtype=np.float32)
+    word = np.arange(n) // 64
+    s[~np.isin(word, (0, 1, 5, 10)) | (rng.random(n) < 0.3)] = NEG_INF
+    add("dead_words_between_alive", b, s, 0.5, presorted=True)
+    # One alive box in the last, ragged word (192..199), a jittered copy
+    # of an alive box of word 0.
+    n = 200
+    b = clustered_boxes(rng, n)
+    s = np.linspace(1.0, 0.01, n, dtype=np.float32)
+    s[rng.random(n) < 0.5] = NEG_INF
+    s[192:] = NEG_INF
+    first = int(np.flatnonzero(s > NEG_INF)[0])
+    b[197] = b[first] + rng.uniform(-1, 1, 4).astype(np.float32)
+    s[197] = np.float32(0.005)
+    add("one_alive_in_ragged_word", b, s, 0.5, presorted=True)
+    # A NaN coordinate in a dead box (word 1) and in an alive one (word 3,
+    # a copy of an alive box of word 0): the alive one removes nothing and
+    # is never removed.
+    n = 320
+    b = clustered_boxes(rng, n, clusters=3)
+    descending = np.linspace(1.0, 0.01, n, dtype=np.float32)
+    s = np.where(rng.random(n) < 0.2, NEG_INF, descending)
+    s[70], s[200] = NEG_INF, descending[200]
+    b[70, 0] = np.nan
+    b[200] = b[int(np.flatnonzero(s > NEG_INF)[0])]
+    b[200, 3] = np.nan
+    add("nan_in_dead_and_alive_box", b, s, 0.5, presorted=True)
     return out
 
 
@@ -119,7 +210,8 @@ def streamed_case(seed=1, n=16385):
     s[rng.random(n) < 0.1] = NEG_INF
     return dict(name=f"streamed_n{n}",
                 boxes=clustered_boxes(rng, n, canvas=4000.0, clusters=200),
-                scores=s, thr=0.5, categories=None, expect=None)
+                scores=s, thr=0.5, categories=None, expect=None,
+                presorted=False)
 
 
 def expected_chain(case):
@@ -130,7 +222,10 @@ def expected_chain(case):
 
 
 def sorted_problem(case):
-    """(boxes sorted by descending score, stable; alive mask) of a case,
-    the inputs of ``_alive_sorted``."""
+    """(boxes sorted by descending score, stable, or as they are for a
+    ``presorted`` case; alive mask) of a case, the inputs of
+    ``_alive_sorted``."""
+    if case["presorted"]:
+        return case["boxes"], case["scores"] > NEG_INF
     order = np.argsort(-case["scores"], kind="stable")
     return case["boxes"][order], case["scores"][order] > NEG_INF

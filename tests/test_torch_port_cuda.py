@@ -508,7 +508,10 @@ def _nms_problems(cuda):
     """(name, sorted boxes [M, N, 4], alive [M, N], thr) on the card: each
     hard case of ``nms_cases`` alone, the card-only case whose row blocks
     the scan streams in column tiles, and random batches at the RPN's and
-    the postprocess's shapes."""
+    the postprocess's shapes: 5% of the entries dead, scattered; the
+    train RPN's 14%, scattered (its min-size filter); the serving
+    postprocess's ~1.3% alive, a prefix of each problem (dead scores sort
+    last)."""
     import nms_cases
 
     out = []
@@ -522,6 +525,16 @@ def _nms_problems(cuda):
         a = rng.random((M, N)) > 0.05
         out.append((f"random_{M}x{N}", torch.from_numpy(b).to(cuda),
                     torch.from_numpy(a).to(cuda), thr))
+    b = np.stack([nms_cases.clustered_boxes(rng, 2000) for _ in range(40)])
+    out.append(("random_40x2000_14pct_dead_scattered",
+                torch.from_numpy(b).to(cuda),
+                torch.from_numpy(rng.random((40, 2000)) > 0.14).to(cuda),
+                0.7))
+    b = np.stack([nms_cases.clustered_boxes(rng, 4096) for _ in range(8)])
+    a = np.arange(4096)[None, :] < rng.integers(20, 90, (8, 1))
+    out.append(("random_8x4096_1.3pct_alive_prefix",
+                torch.from_numpy(b).to(cuda), torch.from_numpy(a).to(cuda),
+                0.5))
     return out
 
 
@@ -560,7 +573,52 @@ def test_nms_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+def test_nms_mask_kernel_matches_plain_words(cuda):
+    """The mask kernel alone (``nms_mask``): on every ``_nms_problems``
+    input its words equal ``_suppression_mask_plain``'s on the words it
+    must write (the alive rows', from each row's own word on)."""
+    from detectinblur_tpu_torch.ops import nms
+
+    lib = nms._library()
+    for name, b, a, thr in _nms_problems(cuda):
+        _, mask, args = nms.kernel_args(b, a, thr)
+        assert lib.nms_mask(*args) == 0, name
+        torch.cuda.synchronize()
+        got = torch.where(nms._covered_words(a), mask, 0)
+        assert torch.equal(got, nms._suppression_mask_plain(b, a, thr)), name
+
+
+@pytest.mark.gpu
+def test_nms_scan_ignores_unwritten_words(cuda):
+    """The words the mask kernel may leave unwritten (dead rows', and those
+    left of a row's own word) never reach the scan's result: with the
+    scratch filled with ones, then with random bits, before ``nms_mask``,
+    ``nms_scan``'s alive mask still equals ``_alive_sorted_plain``'s on
+    every ``_nms_problems`` input."""
+    from detectinblur_tpu_torch.ops import nms
+
+    lib = nms._library()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for name, b, a, thr in _nms_problems(cuda):
+        want = nms._alive_sorted_plain(b, a, thr)
+        for poison in ("ones", "random"):
+            alive, mask, args = nms.kernel_args(b, a, thr)
+            if poison == "ones":
+                mask.fill_(-1)
+            else:
+                mask.random_(generator=gen)
+                mask.bitwise_xor_(torch.randint_like(mask, 2, generator=gen)
+                                  << 63)
+            assert lib.nms_mask(*args) == 0, (name, poison)
+            assert lib.nms_scan(*args) == 0, (name, poison)
+            torch.cuda.synchronize()
+            assert torch.equal(alive, want), (name, poison)
+
+
+@pytest.mark.gpu
 def test_nms_kernel_rejects_bad_inputs(cuda):
+    """The wrapper's checks; the mask kernel's grid caps no problem
+    count: 70000 problems (past grid z's 65535) equal the plain version."""
     from detectinblur_tpu_torch.ops import nms
 
     b = torch.rand(2, 70, 4, device=cuda)
@@ -575,6 +633,18 @@ def test_nms_kernel_rejects_bad_inputs(cuda):
         nms.nms_alive(b, a.cpu(), 0.5)
     with pytest.raises(ValueError):
         nms.nms_alive(b, a[:, :60], 0.5)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b = torch.rand(70000, 3, 4, device=cuda, generator=gen)
+    b[..., 2:] += b[..., :2]
+    a = torch.rand(70000, 3, device=cuda, generator=gen) > 0.2
+    _, mask, args = nms.kernel_args(b, a, 0.3)
+    assert nms._library().nms_mask(*args) == 0
+    assert torch.equal(torch.where(nms._covered_words(a), mask, 0),
+                       nms._suppression_mask_plain(b, a, 0.3))
+    want = torch.cat([nms._alive_sorted_plain(b[i:i + 10000], a[i:i + 10000],
+                                              0.3)
+                      for i in range(0, 70000, 10000)])
+    assert torch.equal(nms.nms_alive(b, a, 0.3), want)
 
 
 @pytest.mark.gpu

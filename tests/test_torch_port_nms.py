@@ -3,9 +3,15 @@ against JAX's (``detectinblur_tpu/ops/nms.py``) on the hard cases of
 ``tests/nms_cases.py``, on the CPU, where ``_alive_sorted`` runs the plain
 version of the kernel ``csrc/nms.cu``: equal alive masks, and equal
 indices, order, padding and ``valid`` masks from ``nms``,
-``grouped_nms_presorted`` and ``batched_nms``. The kernel itself is held
-against the plain version on the card (``tests/test_torch_port_cuda.py``,
+``grouped_nms_presorted`` and ``batched_nms``. The plain version of the
+mask kernel (``_suppression_mask_plain``) is held against JAX's pairwise
+IoU, and a greedy walk that reads only the words the mask kernel must
+write against both packages' alive masks. The kernels themselves are held
+against the plain versions on the card (``tests/test_torch_port_cuda.py``,
 ``chip_smoke.py``)."""
+
+import functools
+import types
 
 import jax
 import numpy as np
@@ -35,6 +41,50 @@ def _jax_alive(sboxes, salive, thr):
         sboxes, salive, thr))
 
 
+@functools.cache
+def _jax_iou_mat():
+    """JAX's ``iou_mat``, the pairwise IoU that ``_alive_sorted`` defines
+    inside itself, rebuilt from that function's code (it closes over
+    nothing) and jitted."""
+    code = next(c for c in jax_nms._alive_sorted.__code__.co_consts
+                if getattr(c, "co_name", "") == "iou_mat")
+    assert not code.co_freevars
+    return jax.jit(types.FunctionType(code, vars(jax_nms)))
+
+
+def _packed(sup):
+    """[R, N] bool -> [R, ceil(N/64)] uint64: bit j of word w is column
+    64 w + j."""
+    R, N = sup.shape
+    words = -(-N // 64)
+    padded = np.zeros((R, words * 64), bool)
+    padded[:, :N] = sup
+    return np.packbits(padded.reshape(R, words, 64), axis=-1,
+                       bitorder="little").view("<u8")[..., 0]
+
+
+def _plain_words(sboxes, salive, thr):
+    """(the plain mask's words as uint64 [N, stride], the covered ones)."""
+    b, a = T(sboxes)[None], T(salive)[None]
+    words = nms._suppression_mask_plain(b, a, thr)[0].numpy().view(np.uint64)
+    return words, nms._covered_words(a)[0].numpy()
+
+
+def _greedy_walk(words, alive):
+    """Greedy NMS over the mask's words that reads only those the mask
+    kernel must write: a row's words from its own on, and only when the
+    row is kept (kept rows are alive)."""
+    removed = np.zeros(words.shape[1], np.uint64)
+    keep = np.zeros(len(alive), bool)
+    for r in np.flatnonzero(alive):
+        w, bit = divmod(int(r), 64)
+        if (int(removed[w]) >> bit) & 1:
+            continue
+        keep[r] = True
+        removed[w:] |= words[r, w:]
+    return keep
+
+
 @pytest.mark.parametrize("name", ORDER)
 def test_alive_sorted_matches_jax(name):
     case = CASES[name]
@@ -43,6 +93,41 @@ def test_alive_sorted_matches_jax(name):
     got = nms._alive_sorted(T(sboxes)[None], T(salive)[None], case["thr"])
     assert nms.nms_alive.launches == before    # the CPU runs no kernel
     np.testing.assert_array_equal(got[0].numpy(),
+                                  _jax_alive(sboxes, salive, case["thr"]))
+
+
+@pytest.mark.parametrize("name", ORDER)
+def test_suppression_mask_plain_matches_jax(name):
+    """On the words the mask kernel must write (alive rows, from the
+    row's own word on), the plain mask is JAX's ``iou_mat(...) > thr``
+    over later alive columns; every other word is 0."""
+    case = CASES[name]
+    sboxes, salive = nms_cases.sorted_problem(case)
+    got, covered = _plain_words(sboxes, salive, case["thr"])
+    N = len(salive)
+    later = np.arange(N)[:, None] < np.arange(N)[None, :]
+    sup = ((np.asarray(_jax_iou_mat()(sboxes, sboxes))
+            > np.float32(case["thr"])) & salive[None, :] & later)
+    want = np.zeros_like(got)
+    want[:, :-(-N // 64)] = _packed(sup)
+    np.testing.assert_array_equal(got, np.where(covered, want, 0))
+
+
+@pytest.mark.parametrize("name", ORDER)
+def test_greedy_walk_over_covered_words_matches_jax(name):
+    """With noise in every word the mask kernel may leave unwritten, a
+    greedy walk over the plain mask's words gives the plain version's and
+    JAX's alive masks: the scan never needs those words."""
+    case = CASES[name]
+    sboxes, salive = nms_cases.sorted_problem(case)
+    words, covered = _plain_words(sboxes, salive, case["thr"])
+    noise = np.random.default_rng(0).integers(0, 2**64, words.shape,
+                                              dtype=np.uint64)
+    keep = _greedy_walk(np.where(covered, words, noise), salive)
+    plain = nms._alive_sorted_plain(T(sboxes)[None], T(salive)[None],
+                                    case["thr"])
+    np.testing.assert_array_equal(keep, plain[0].numpy())
+    np.testing.assert_array_equal(keep,
                                   _jax_alive(sboxes, salive, case["thr"]))
 
 
