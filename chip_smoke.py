@@ -1,7 +1,7 @@
 """Drive the PyTorch port's serving, training, entry-point, remedy,
 deblur-first, blur-estimator, ensemble, single-map detector,
-natural-blur, person-keypoint, PSF-bank and data-parallel paths on one
-CUDA card.
+natural-blur, person-keypoint, PSF-bank, data-parallel and benchmark
+paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -197,6 +197,22 @@ Phases (any failure exits non-zero and prints no result):
      64-box step), beside the plain version, its bound, and the mask
      kernel's own bound (alive pairs) and share; every path that runs NMS
      must have launched it.
+
+ 15. The benchmark entry points, as a user runs them: ``python -m
+     detectinblur_tpu_torch.bench.{serve,train,pipeline}``, each a
+     subprocess with the checkout on ``PYTHONPATH`` and its JAX twin's
+     full protocol (``bench.py``, ``bench_train.py``,
+     ``bench_pipeline.py``: 12 windows of 10 serving calls, the best of 3
+     repeats of 50 train steps, 256 JPEGs through the loader over 8
+     threads); each must exit 0 and end its stdout in one JSON line with
+     its twin's keys and finite positive numbers, printed here. Then
+     ``bench.pipeline``'s epoch in turns with its loader live and with
+     the epoch's batches taken first (ms a step on the wall, in the
+     step's calls and waiting on the loader). Then
+     ``serve.run`` and ``train.run`` in this process at one window of 2
+     calls under the launch counters (paths ``bench_serve``,
+     ``bench_train``): each must launch its kernels, each held against
+     its plain version on the inputs they handed it.
 
 The last two lines are a JSON object describing each kernel (its
 ``launches`` summed over the counted runs of every path, one count per
@@ -3834,6 +3850,138 @@ def run_nms_phase(by_path):
     }
 
 
+# ------------------------------------------------- entry points (phase 15)
+# Each benchmark module: (its JAX twin's metric, the keys of the JAX
+# line, bench.py:159-166, bench_train.py:131-136, bench_pipeline.py:
+# 281-294, the keys that must be finite and > 0).
+BENCH_LINES = {
+    "serve": ("blur_detect_images_per_sec_per_chip",
+              {"metric", "value", "unit", "vs_baseline", "window_rates",
+               "best_window"}, ("value", "vs_baseline", "best_window")),
+    "train": ("train_step_images_per_sec_per_chip",
+              {"metric", "value", "unit", "step_ms"}, ("value", "step_ms")),
+    "pipeline": ("pipeline_train_images_per_sec_per_chip",
+                 {"metric", "value", "unit", "step_ms", "h2d_ms",
+                  "loader_wait_ms", "loader_only_img_s", "workers",
+                  "host_cores", "flops_per_step", "device_kind", "mfu"},
+                 ("value", "step_ms", "h2d_ms", "loader_only_img_s",
+                  "flops_per_step", "mfu")),
+}
+
+
+def run_bench_module(name):
+    """``python -m detectinblur_tpu_torch.bench.<name>`` with the
+    checkout on ``PYTHONPATH`` and the default protocol, as a user runs
+    it: exit unless it ends 0 with one JSON line, the last of stdout,
+    with its JAX twin's keys and finite positive numbers. Returns the
+    line's record."""
+    import math
+    import os
+    import signal
+
+    here = Path(__file__).resolve().parent
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(here) + (os.pathsep + path
+                                                   if path else ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"detectinblur_tpu_torch.bench.{name}"],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        sys.exit(f"bench.{name} timed out")
+    seconds = time.perf_counter() - t0
+    for line in err.strip().splitlines()[-12:]:
+        print(f"  bench.{name} stderr: {line}")
+    lines = out.strip().splitlines()
+    print(f"bench.{name}: exit {proc.returncode} in {seconds:.1f} s; "
+          f"{lines[-1] if lines else '(no output)'}")
+    if proc.returncode != 0 or not lines:
+        sys.exit(f"bench.{name} failed")
+    record = json.loads(lines[-1])
+    metric, keys, positive = BENCH_LINES[name]
+    ok = (set(record) == keys and record["metric"] == metric
+          and sum(line.lstrip().startswith("{") for line in lines) == 1
+          and all(isinstance(record[k], (int, float))
+                  and math.isfinite(record[k]) and record[k] > 0
+                  for k in positive))
+    if name == "pipeline":
+        ok = ok and record["device_kind"] == torch.cuda.get_device_name(0)
+    if not ok:
+        sys.exit(f"bench.{name}: its last line is not its JAX twin's")
+    return record | {"seconds": seconds}
+
+
+def pipeline_epochs():
+    """Phase 15: ``bench.pipeline``'s epoch (256 JPEGs, 8 threads, B=8) in
+    turns with the loader live (its threads beside the step, as the
+    benchmark runs it) and with the epoch's batches taken first (no
+    loader thread running): img/s and, a step, ms on the wall clock, ms
+    in the step's calls on the host and ms waiting on the loader."""
+    from detectinblur_tpu_torch.bench import pipeline
+    from detectinblur_tpu_torch.bench.common import default_config
+    from detectinblur_tpu_torch.bench.train import make_step
+
+    dev = torch.device("cuda")
+    turns = {"live": [], "taken": []}
+    with tempfile.TemporaryDirectory() as root:
+        loader = pipeline.make_loader(root, 256, 8, device=dev)
+        _, state, step = make_step(default_config(), B, SRC_HW, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        loader.set_epoch(1)
+        taken = list(loader)
+        state = pipeline.run_epoch(taken[:3], step, state, gen, dev).state
+        for name in ("live", "taken", "taken", "live"):
+            e = pipeline.run_epoch(loader if name == "live" else taken, step,
+                                   state, gen, dev)
+            state = e.state
+            turns[name].append({
+                "img_s": e.steps * B / e.wall, "ms": e.wall / e.steps * 1e3,
+                "host_ms": e.host / e.steps * 1e3,
+                "wait_ms": e.wait / e.steps * 1e3})
+    print("bench.pipeline's epoch, loader live vs batches taken first, in "
+          "turns: " + json.dumps(turns))
+    return turns
+
+
+def run_bench_phase():
+    """Phase 15: the three benchmark modules as a user runs them, then
+    ``bench.pipeline``'s epoch with the loader live and with its batches
+    taken first (``pipeline_epochs``), then ``serve.run`` and
+    ``train.run`` in this process at one short window under the launch
+    counters, each kernel held against its plain version on the inputs
+    they handed it. Returns (launches per kernel on each path, the three
+    records and the epochs)."""
+    from detectinblur_tpu_torch.bench import serve, train
+    from detectinblur_tpu_torch.ops import nms
+
+    records = {name: run_bench_module(name) for name in BENCH_LINES}
+    records["pipeline_epochs"] = pipeline_epochs()
+    launches = {}
+    for path, run, kernels in (
+            ("bench_serve", lambda: serve.run(iters=2, repeats=1),
+             ("roi_align_fwd", "nms_alive")),
+            ("bench_train", lambda: train.run(iters=2, repeats=1),
+             ("roi_align_fwd", "roi_align_bwd", "nms_alive"))):
+        fwd, bwd = {}, {}
+        with _capture_roi_align(fwd, bwd), _capture_nms(path):
+            record, launches[path] = _counted(run)
+        print(f"{path} in this process: launches {launches[path]}, "
+              + json.dumps(record))
+        if any(launches[path][k] == 0 for k in kernels):
+            sys.exit(f"{path} did not launch each of {kernels}")
+        check_captured(path, fwd, bwd)
+        for (p, name, shapes), (_, args) in list(NMS_CAPTURED.items()):
+            if p == path:
+                _hold_nms(f"{path}: {name} {list(shapes[0])}",
+                          getattr(nms, name), args)
+    return launches, records
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -3970,6 +4118,14 @@ def main():
     t0 = time.perf_counter()
     kernels.append(run_nms_phase(by_path))
     print(f"phase 14 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    bench_launches, bench = run_bench_phase()
+    for path, counts in bench_launches.items():
+        for name, n in counts.items():
+            if n:
+                by_path[name][path] = n
+    print("phase 15 " + json.dumps(bench | {
+        "seconds": time.perf_counter() - t0}))
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         k["launches"] = sum(by_path[k["name"]].values())
