@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from detectinblur_tpu_torch.parallel.dist import all_reduce_sum, distributed
+from detectinblur_tpu_torch.utils.profiling import span
 
 MODES = ("train", "eval", "acclimation", "mode_one")
 
@@ -74,6 +75,10 @@ class AdaptiveBatchNorm(nn.Module):
         return m, v, total.float()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with span("norm"):
+            return self._normalize(x)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         mode = self.mode
         if mode == "eval":
             use_m, use_v = self.running_mean, self.running_var

@@ -25,7 +25,6 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.func import functional_call, stack_module_state
-from torch.profiler import record_function
 
 from detectinblur_tpu_torch.models.classifier import (
     ResNetClassifier,
@@ -40,6 +39,7 @@ from detectinblur_tpu_torch.train.engine import (
     prepare_eval_batch,
     to_device,
 )
+from detectinblur_tpu_torch.utils.profiling import span
 
 
 class Specialists(NamedTuple):
@@ -93,9 +93,9 @@ def make_ensemble_predict(model, bucket: Tuple[int, int],
                 corruption_draws=None):
         if specialists.template is not model:
             raise ValueError("the step was made for another template")
-        with record_function("eval.to_device"):
+        with span("eval.to_device"):
             batch = to_device(batch, model.device)
-        with record_function("eval.blur_expand"):
+        with span("eval.blur_expand"):
             batch = prepare_eval_batch(
                 batch, generator, blur_eval=blur_eval,
                 expand_target_boxes=expand_target_boxes,
@@ -104,19 +104,18 @@ def make_ensemble_predict(model, bucket: Tuple[int, int],
                 add_jpeg=add_jpeg, dilate_psf=dilate_psf, use_warp=use_warp,
                 dilate_psf_sigma=dilate_psf_sigma,
                 corruption_draws=corruption_draws, deblurrer=deblurrer)
-        with record_function("ensemble.choose"):
-            if estimator is None:
-                index = model_index_oracle(batch.blurring, batch.param_index,
-                                           batch.fraction_index)[0]
-            else:
-                imgs, _ = preprocess_batch(batch.images, batch.hw, bucket,
-                                           crop_images=True)
-                pred = estimator(imgs.to(estimator.device)).argmax(-1)[0]
-                index = (pred.clamp(0, 3) if lehe
-                         else estimator_to_model_index_16(pred))
-            index = index.to(model.device)
-            weights = (select_specialist(specialists.params, index),
-                       select_specialist(specialists.buffers, index))
+        if estimator is None:
+            index = model_index_oracle(batch.blurring, batch.param_index,
+                                       batch.fraction_index)[0]
+        else:
+            imgs, _ = preprocess_batch(batch.images, batch.hw, bucket,
+                                       crop_images=True)
+            pred = estimator(imgs.to(estimator.device)).argmax(-1)[0]
+            index = (pred.clamp(0, 3) if lehe
+                     else estimator_to_model_index_16(pred))
+        index = index.to(model.device)
+        weights = (select_specialist(specialists.params, index),
+                   select_specialist(specialists.buffers, index))
         dets = functional_call(
             model, weights, (batch.images, batch.hw, bucket),
             remedy_kwargs(batch, use_warp, use_custom_norm))

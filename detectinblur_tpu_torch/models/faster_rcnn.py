@@ -17,8 +17,9 @@ live in ``TwoStageDetector``; a detector brings its backbone's
 of the public stage methods
 ``preprocess``, ``features``, ``propose``, ``pool`` and ``detect``, which
 a caller may also run one by one (the smoke script times them so). Each
-runs inside a ``torch.profiler.record_function`` range (``predict.rpn``
-and so on), so a profiler trace of any caller shows where its time goes.
+runs inside a ``utils.profiling.span`` (``predict.rpn`` and so on), and
+``loss`` runs its backbone in ``loss.backbone``, so a profiler trace of
+any caller shows where its time goes.
 
 ``loss`` runs the same stages in training form (train top-k sizes, anchor
 and roi sampling, RoIAlign through the differentiable kernel pair) and
@@ -47,7 +48,6 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from detectinblur_tpu_torch.models.batchnorm import training_mode
 from detectinblur_tpu_torch.models.detection_transform import (
@@ -81,6 +81,7 @@ from detectinblur_tpu_torch.utils.device import (
     set_fp32_math,
     to_device_async,
 )
+from detectinblur_tpu_torch.utils.profiling import span
 
 
 class FasterRCNNConfig(NamedTuple):
@@ -167,16 +168,16 @@ class TwoStageDetector(nn.Module):
         static model bucket -> fixed-size ``Detections``. ``means`` /
         ``stds`` [B, 3] and ``thetas``, ``lam1s``, ``lam2s`` [B] are the
         remedies' per-image inputs."""
-        with record_function("predict.preprocess"):
+        with span("predict.preprocess"):
             batched, new_hw = self.preprocess(images.to(self.device), hw,
                                               bucket, means, stds)
-        with record_function("predict.backbone"):
+        with span("predict.backbone"):
             feats = self.features(batched, thetas, lam1s, lam2s)
-        with record_function("predict.rpn"):
+        with span("predict.rpn"):
             proposals, valid = self.propose(feats, new_hw)
-        with record_function("predict.roi_align"):
+        with span("predict.roi_align"):
             pooled = self.pool(feats, proposals, valid)
-        with record_function("predict.head_postprocess"):
+        with span("predict.head_postprocess"):
             return self.detect(pooled, proposals, valid, new_hw, hw)
 
     def forward(self, *args, **kwargs) -> Detections:
@@ -220,7 +221,7 @@ class TwoStageDetector(nn.Module):
         gt_labels = gt_labels.to(device)
         gt_valid = gt_valid.to(device).bool()
 
-        with self._training_torso():
+        with self._training_torso(), span("loss.backbone"):
             feats = self.features(batched, thetas, lam1s, lam2s)
         rpn = run_rpn(self.rpn_head, feats, new_hw, cfg.rpn,
                       anchors=self.level_anchors(feats), training=True)

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from detectinblur_tpu_torch.models.batchnorm import AdaptiveBatchNorm
+from detectinblur_tpu_torch.utils.profiling import span
 
 _WIDTHS = (64, 128, 256, 512)
 
@@ -80,8 +81,9 @@ class FrozenBatchNorm(nn.Module):
             self.register_buffer("bias", torch.zeros(features))
 
     def forward(self, x):
-        return (x * self.scale.to(x.dtype)[:, None, None]
-                + self.bias.to(x.dtype)[:, None, None])
+        with span("norm"):
+            return (x * self.scale.to(x.dtype)[:, None, None]
+                    + self.bias.to(x.dtype)[:, None, None])
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> Conv2d:

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from detectinblur_tpu_torch.utils.profiling import span
+
 
 def _pad_mode(k: int, h: int, w: int) -> str:
     if k > 129:
@@ -156,14 +158,15 @@ def batched_blur(images: torch.Tensor, psfs: torch.Tensor,
     afterwards (the blurred reflect-extension must not leak into the batch
     padding).
     """
-    blurred = apply_psf_blur(images, psfs, exact=exact, hw=hw)
-    on = blurring.to(images.device).bool()[:, None, None, None]
-    if hw is not None:
-        Hc, Wc = images.shape[-2], images.shape[-1]
-        hw_t = torch.as_tensor(hw, device=images.device).long()
-        rows = torch.arange(Hc, device=images.device)
-        cols = torch.arange(Wc, device=images.device)
-        valid = ((rows[None, :, None] < hw_t[:, 0, None, None])
-                 & (cols[None, None, :] < hw_t[:, 1, None, None]))
-        on = on & valid[:, None]
-    return torch.where(on, blurred, images)
+    with span("blur"):
+        blurred = apply_psf_blur(images, psfs, exact=exact, hw=hw)
+        on = blurring.to(images.device).bool()[:, None, None, None]
+        if hw is not None:
+            Hc, Wc = images.shape[-2], images.shape[-1]
+            hw_t = torch.as_tensor(hw, device=images.device).long()
+            rows = torch.arange(Hc, device=images.device)
+            cols = torch.arange(Wc, device=images.device)
+            valid = ((rows[None, :, None] < hw_t[:, 0, None, None])
+                     & (cols[None, None, :] < hw_t[:, 1, None, None]))
+            on = on & valid[:, None]
+        return torch.where(on, blurred, images)

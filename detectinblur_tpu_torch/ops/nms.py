@@ -27,6 +27,7 @@ import torch
 
 from detectinblur_tpu_torch.ops.boxes import box_iou
 from detectinblur_tpu_torch.utils import cuda_build
+from detectinblur_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e30
 
@@ -242,21 +243,25 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     Returns (indices [..., max_outputs] int32, valid [..., max_outputs]
     bool), selections in descending score order.
     """
-    lead = scores.shape[:-1]
-    N = scores.shape[-1]
-    scores = scores.reshape(-1, N).float()
-    boxes = boxes.reshape(-1, N, 4)
-    order = torch.sort(-scores, dim=-1, stable=True)[1]
-    sboxes = torch.gather(boxes.float(), 1, order[..., None].expand(-1, -1, 4))
-    salive = torch.gather(scores, 1, order) > NEG_INF
-    alive = _alive_sorted(sboxes, salive, iou_threshold)
-    # Rank epilogue: the best survivors in sorted-rank order.
-    rank = torch.arange(N, device=scores.device, dtype=torch.float32)
-    key = torch.where(alive, -rank, torch.full_like(rank, -float("inf")))
-    picked, valid = _select_top(key, alive, max_outputs)
-    idxs = torch.where(valid, torch.gather(order, 1, picked.long()),
-                       torch.zeros_like(order[:, :1])).int()
-    return idxs.reshape(*lead, max_outputs), valid.reshape(*lead, max_outputs)
+    with span("nms"):
+        lead = scores.shape[:-1]
+        N = scores.shape[-1]
+        scores = scores.reshape(-1, N).float()
+        boxes = boxes.reshape(-1, N, 4)
+        order = torch.sort(-scores, dim=-1, stable=True)[1]
+        sboxes = torch.gather(boxes.float(), 1,
+                              order[..., None].expand(-1, -1, 4))
+        salive = torch.gather(scores, 1, order) > NEG_INF
+        alive = _alive_sorted(sboxes, salive, iou_threshold)
+        # Rank epilogue: the best survivors in sorted-rank order.
+        rank = torch.arange(N, device=scores.device, dtype=torch.float32)
+        key = torch.where(alive, -rank,
+                          torch.full_like(rank, -float("inf")))
+        picked, valid = _select_top(key, alive, max_outputs)
+        idxs = torch.where(valid, torch.gather(order, 1, picked.long()),
+                           torch.zeros_like(order[:, :1])).int()
+        return (idxs.reshape(*lead, max_outputs),
+                valid.reshape(*lead, max_outputs))
 
 
 def grouped_nms_presorted(boxes: torch.Tensor, scores: torch.Tensor,
@@ -271,16 +276,19 @@ def grouped_nms_presorted(boxes: torch.Tensor, scores: torch.Tensor,
 
     Returns (indices into the flattened [..., G*K] arrays, valid).
     """
-    lead = scores.shape[:-2]
-    G, K = scores.shape[-2:]
-    flat_scores = scores.reshape(-1, G * K).float()
-    alive = _alive_sorted(boxes.reshape(-1, K, 4),
-                          (scores > NEG_INF).reshape(-1, K), iou_threshold)
-    alive = alive.reshape(-1, G * K)
-    key = torch.where(alive, flat_scores,
-                      torch.full_like(flat_scores, -float("inf")))
-    idxs, valid = _select_top(key, alive, max_outputs)
-    return idxs.reshape(*lead, max_outputs), valid.reshape(*lead, max_outputs)
+    with span("nms"):
+        lead = scores.shape[:-2]
+        G, K = scores.shape[-2:]
+        flat_scores = scores.reshape(-1, G * K).float()
+        alive = _alive_sorted(boxes.reshape(-1, K, 4),
+                              (scores > NEG_INF).reshape(-1, K),
+                              iou_threshold)
+        alive = alive.reshape(-1, G * K)
+        key = torch.where(alive, flat_scores,
+                          torch.full_like(flat_scores, -float("inf")))
+        idxs, valid = _select_top(key, alive, max_outputs)
+        return (idxs.reshape(*lead, max_outputs),
+                valid.reshape(*lead, max_outputs))
 
 
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
@@ -289,8 +297,11 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
     """Category-aware NMS via the coordinate-offset trick (torchvision
     batched_nms): boxes of different categories never overlap. Leading
     dimensions are independent problems, each with its own offset."""
-    live = scores > NEG_INF
-    max_coord = torch.where(live, boxes.max(dim=-1).values,
-                            torch.zeros_like(scores)).amax(dim=-1, keepdim=True)
-    offsets = categories.float() * (max_coord + 1.0)
-    return nms(boxes + offsets[..., None], scores, iou_threshold, max_outputs)
+    with span("nms"):
+        live = scores > NEG_INF
+        max_coord = torch.where(live, boxes.max(dim=-1).values,
+                                torch.zeros_like(scores)).amax(
+                                    dim=-1, keepdim=True)
+        offsets = categories.float() * (max_coord + 1.0)
+        return nms(boxes + offsets[..., None], scores, iou_threshold,
+                   max_outputs)

@@ -27,7 +27,6 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from detectinblur_tpu_torch.models.deblur import MSResNet, deblur_image
 from detectinblur_tpu_torch.ops.blur import batched_blur
@@ -49,6 +48,7 @@ from detectinblur_tpu_torch.utils.device import (
     DEFAULT_PRECISION,
     to_device_async,
 )
+from detectinblur_tpu_torch.utils.profiling import span
 
 
 class BlurBatch(NamedTuple):
@@ -195,17 +195,22 @@ def make_train_step(model, schedule: Callable[[int], float],
                           generator=generator, draws=draws,
                           **remedy_kwargs(batch, use_warp, use_custom_norm))
 
-        losses = loss(model) if ddp is None else ddp(loss)
-        total = sum(losses.values())
+        with span("train.forward"):
+            losses = loss(model) if ddp is None else ddp(loss)
+            total = sum(losses.values())
         optimizer = state.optimizer
         optimizer.zero_grad(set_to_none=True)
         # DDP averages the gradients over the W processes; each process's
         # losses are its share of the global batch's sums, so W times them
-        # gives the global losses' gradient.
-        (total if ddp is None else total * process_count()).backward()
-        for group in optimizer.param_groups:
-            group["lr"] = schedule(state.step)
-        optimizer.step()
+        # gives the global losses' gradient. On a card the autograd engine
+        # launches the backward's kernels from its own thread, outside
+        # this span.
+        with span("train.backward"):
+            (total if ddp is None else total * process_count()).backward()
+        with span("train.optimizer"):
+            for group in optimizer.param_groups:
+                group["lr"] = schedule(state.step)
+            optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
         if ddp is not None:
@@ -264,10 +269,10 @@ def make_eval_step(model, bucket: Tuple[int, int], blur_eval: bool = False,
     the model bucket ``bucket``: the batch moves to the model's device,
     goes through ``prepare_eval_batch`` and ``model.predict`` with the
     remedies asked for; ``gt_boxes`` are the (expanded) GT boxes. The
-    first two run in the profiler ranges ``eval.to_device`` and
-    ``eval.blur_expand`` (deblur-first included). ``generator`` (on the
-    model's device) is the randomness of the PSF dilation and the
-    corruptions."""
+    first two run in the spans (``utils.profiling.span``)
+    ``eval.to_device`` and ``eval.blur_expand`` (deblur-first included).
+    ``generator`` (on the model's device) is the randomness of the PSF
+    dilation and the corruptions."""
 
     @torch.no_grad()
     def step(model_, batch: BlurBatch,
@@ -276,9 +281,9 @@ def make_eval_step(model, bucket: Tuple[int, int], blur_eval: bool = False,
              corruption_draws: Optional[CorruptionDraws] = None):
         if model_ is not model:
             raise ValueError("the step was made for another model")
-        with record_function("eval.to_device"):
+        with span("eval.to_device"):
             batch = to_device(batch, model.device)
-        with record_function("eval.blur_expand"):
+        with span("eval.blur_expand"):
             batch = prepare_eval_batch(
                 batch, generator, blur_eval=blur_eval,
                 expand_target_boxes=expand_target_boxes,

@@ -11,8 +11,14 @@ Port of ``detectinblur_tpu/utils/profiling.py``:
 
     device_memory_stats()              # bytes in use, peak and limit
 
+    with span("norm"):                 # a named range in any such trace
+        y = x * scale + bias
+
 ``trace`` records the host's operators and, on a CUDA device, the card's
-kernels (CUPTI), and writes ``trace.json`` under ``logdir``.
+kernels (CUPTI), and writes ``trace.json`` under ``logdir``. ``span`` is
+the port's one way to name a stage: a ``record_function`` range (the
+trace's ``user_annotation``) while a profiler records, and a shared no-op
+otherwise, so a span costs one flag check when nothing is traced.
 """
 
 from __future__ import annotations
@@ -22,6 +28,20 @@ import os
 import time
 
 import torch
+from torch.autograd.profiler import record_function
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context naming the block ``name`` in a profiler's trace: a
+    ``record_function`` range while a profiler records (``trace``,
+    ``torch.profiler.profile``), else a shared no-op. The device work
+    launched inside is tied to the range by the launching thread."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
