@@ -8,8 +8,8 @@ paths on one CUDA card.
 Phases (any failure exits non-zero and prints no result):
   1. Require CUDA; print the card's name and power limit.
   2. Build every kernel of the paths from the sources in the checkout (one
-     nvcc per source, in parallel: both RoIAlign kernels and the greedy
-     NMS pass); print ptxas's registers and spills.
+     nvcc per source, in parallel: both RoIAlign kernels, the greedy NMS
+     pass and the conv epilogue); print ptxas's registers and spills.
   3. Hold each kernel against its plain torch version: the RoIAlign
      forward at the serving shapes (8 images x 1000 rois on the 832x1088
      bucket's P2..P5), the backward at the train shapes (8 x 512 rois),
@@ -21,7 +21,8 @@ Phases (any failure exits non-zero and prints no result):
      Faster R-CNN ResNet50-FPN predict at full width in throughput
      (``default``) precision with the RPN delta head zeroed. Check the
      outputs, prove the path launched the forward kernel and the NMS
-     kernel, exit if anything in blur + predict synchronizes with the
+     kernel and made one conv-epilogue pass for each of its 49 folded
+     norm groups, exit if anything in blur + predict synchronizes with the
      host (sync debug mode "warn"), time it (img/s and ms per stage with
      CUDA events; img/s with NMS through the kernel and the plain version
      in turns).
@@ -29,7 +30,8 @@ Phases (any failure exits non-zero and prints no result):
      16 random GT boxes per image, blur and PSF-driven GT expansion, then
      the loss, backward and SGD (lr 0.04, 1000 steps per epoch, warmup) of
      a model trained from scratch, ``default`` precision. Prove the step
-     launched its three kernels, check the losses and which parameters
+     launched its three kernels and made the forward's 49 conv-epilogue
+     passes, check the losses and which parameters
      moved, list what in the step still synchronizes with the host (not a
      gate), time it (img/s, ms per stage, peak memory; img/s with NMS
      through the kernel and the plain version in turns).
@@ -78,9 +80,10 @@ Phases (any failure exits non-zero and prints no result):
      remedy (blur, noise, block, JPEG, GT expansion, the Squint warp, the
      blur-conditional norms, BatchNorm in train mode), then an eval step
      with every eval-time one (PSF dilation, the corruptions, the warp,
-     the norms, mode_one BatchNorm). Each must launch its kernels (and the
-     train step move every trainable parameter and every BatchNorm
-     buffer); each kernel is held against its plain version on the
+     the norms, mode_one BatchNorm). Each must launch its kernels and no
+     conv-epilogue pass (its BatchNorms do not fold), and the train step
+     move every trainable parameter and every BatchNorm
+     buffer; each kernel is held against its plain version on the
      step's own warped levels and cotangent and timed there; both steps
      are timed as phases 4 and 5 time theirs. Then the card against the
      CPU on a small input (a remedy train step's losses, gradients and
@@ -211,8 +214,20 @@ Phases (any failure exits non-zero and prints no result):
      step's calls and waiting on the loader). Then
      ``serve.run`` and ``train.run`` in this process at one window of 2
      calls under the launch counters (paths ``bench_serve``,
-     ``bench_train``): each must launch its kernels, each held against
-     its plain version on the inputs they handed it.
+     ``bench_train``): each must launch its kernels, the conv epilogue 49
+     times in each of its 3 forwards, each held against its plain version
+     on the inputs they handed it.
+
+ 16. The conv-epilogue kernel (``csrc/conv_epilogue.cu``, the pass after
+     each convolution whose FrozenBatchNorm folded into it): the shapes of
+     the 49 passes of one ResNet50-FPN backbone forward at phase 4's
+     shapes recorded (e.g. 8x64x416x544 without a residual, 8x256x208x272
+     with one), then on
+     each distinct shape, bfloat16 and float32, the kernel held bit for
+     bit against its plain version and timed (replayed from a CUDA graph,
+     and through its wrapper from Python) beside its bytes bound, the
+     plain version and the unfolded ops it replaced (mul, add, residual
+     add, ReLU); the totals of a forward's passes.
 
 The last two lines are a JSON object describing each kernel (its
 ``launches`` summed over the counted runs of every path, one count per
@@ -235,6 +250,8 @@ import torch
 B, SRC_HW, C = 8, (480, 640), 256
 TRAIN_R, TRAIN_G = 512, 16     # rois sampled and GT boxes per train image
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+EPILOGUE = "conv_epilogue"     # the conv epilogue's entry in the kernels line
+PASSES = 49     # its passes in a ResNet-50 forward: the stem's, 3 a block
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
 
@@ -687,8 +704,9 @@ def run_train(gen):
         lambda: step(state, batch, generator=gen))
     print(f"train step: launches {launches}, losses "
           + json.dumps({k: v.item() for k, v in metrics.items()}))
-    if min(launches.values()) == 0:
+    if _missed(launches):
         sys.exit("the train step did not launch every kernel")
+    _check_passes("train step", launches, 1)
     if not all(torch.isfinite(v) for v in metrics.values()):
         sys.exit("non-finite training loss")
     trainable = {n for g in opt.param_groups for p in g["params"]
@@ -812,9 +830,7 @@ def run_slice(gen):
         FasterRCNNConfig,
     )
     from detectinblur_tpu_torch.ops.blur import batched_blur
-    from detectinblur_tpu_torch.ops.nms import nms_alive
     from detectinblur_tpu_torch.ops.psf import sample_psf
-    from detectinblur_tpu_torch.ops.roi_align_cuda import roi_align_fwd
 
     hw = np.tile(np.asarray([SRC_HW]), (B, 1))
     bucket = model_bucket_for_batch(hw)
@@ -844,14 +860,12 @@ def run_slice(gen):
     torch.cuda.synchronize()
 
     # The main path, counted.
-    roi_align_fwd.launches = nms_alive.launches = 0
-    det = blur_detect()
-    torch.cuda.synchronize()
-    launches, nms_launches = roi_align_fwd.launches, nms_alive.launches
-    print(f"main path: roi_align_fwd launches {launches}, nms_alive "
-          f"launches {nms_launches}")
+    det, counted = _counted(blur_detect)
+    launches, nms_launches = counted["roi_align_fwd"], counted["nms_alive"]
+    print(f"main path: launches {counted}")
     if launches == 0 or nms_launches == 0:
         sys.exit("the main path never launched roi_align_fwd or nms_alive")
+    _check_passes("serving", counted, 1)
     # Nothing in blur + predict may wait on the host.
     sites = _sync_sites(blur_detect)
     print("serving predict, synchronizing CUDA operations by the port's "
@@ -912,8 +926,8 @@ def run_slice(gen):
                "nms_turns_img_s": turns, "stage_ms": acc, "peak_mem_gib": peak,
                "valid_proposals": valid.sum(1).tolist()}
     print("slice " + json.dumps(summary))
-    return (bucket, launches, nms_launches, [f for f in feats[:4]], rois,
-            img_s)
+    return (counted[EPILOGUE], launches, nms_launches,
+            [f for f in feats[:4]], rois, img_s)
 
 
 def time_fwd_kernel(feats, geom, R, where):
@@ -1108,18 +1122,45 @@ def _write_coco(root, n_cats=90, box_frac=(0.05, 0.6)):
                       seed=0, n_cats=n_cats, boxes=(2, 6), box_frac=box_frac)
 
 
+def _kernels():
+    """Each hand kernel's launch-counting wrapper, by the name of its
+    entry in the ``kernels`` line."""
+    from detectinblur_tpu_torch.ops import conv_epilogue, nms, roi_align_cuda
+
+    return {"roi_align_fwd": roi_align_cuda.roi_align_fwd,
+            "roi_align_bwd": roi_align_cuda.roi_align_bwd,
+            "nms_alive": nms.nms_alive,
+            EPILOGUE: conv_epilogue.conv_epilogue_kernel}
+
+
 def _counted(fn):
     """(fn's result, launches of each kernel during fn) with the counts
     set to 0 just before and read just after."""
-    from detectinblur_tpu_torch.ops import nms, roi_align_cuda
-
-    kernels = (roi_align_cuda.roi_align_fwd, roi_align_cuda.roi_align_bwd,
-               nms.nms_alive)
-    for k in kernels:
+    kernels = _kernels()
+    for k in kernels.values():
         k.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {k.__name__: k.launches for k in kernels}
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def _missed(launches):
+    """Whether a RoIAlign or NMS kernel saw no launch in ``launches``
+    (the conv epilogue runs only where FrozenBatchNorms fold, and
+    ``_check_passes`` holds its count)."""
+    return min(n for name, n in launches.items() if name != EPILOGUE) == 0
+
+
+def _check_passes(path, launches, forwards):
+    """Exit unless ``path`` launched the conv epilogue PASSES times for
+    each of its ``forwards`` ResNet-50 forwards (0: none, the path does
+    not fold)."""
+    n = launches[EPILOGUE]
+    print(f"{path}: {n} conv-epilogue passes for {forwards} ResNet-50 "
+          f"forwards")
+    if n != PASSES * forwards:
+        sys.exit(f"{path}: {n} conv-epilogue passes, want {PASSES} for each "
+                 f"of {forwards} ResNet-50 forwards")
 
 
 def _check_stats(name, stats):
@@ -1303,7 +1344,7 @@ def run_entry_points(keep):
                 _phase8_train_argv(root, out, pth)))
         print(f"cli.train: {time.perf_counter() - t0:.2f} s, launches "
               f"{train_launches}, losses " + json.dumps(run.losses))
-        if min(train_launches.values()) == 0:
+        if _missed(train_launches):
             sys.exit("cli.train did not launch every kernel")
         if len(run.losses) != 3 or not all(
                 np.isfinite(v) for m in run.losses for v in m.values()):
@@ -1321,8 +1362,7 @@ def run_entry_points(keep):
         first_losses = run.losses[0]
         del run
 
-        eval_launches = {"roi_align_fwd": 0, "roi_align_bwd": 0,
-                         "nms_alive": 0}
+        eval_launches = dict.fromkeys(_kernels(), 0)
         buckets = set()
         clean = ["--data-path", root, "--resume", str(ckpt), "--vanilla_eval"]
         sweep = ["--data-path", root, "--start_from_weights", pth,
@@ -1484,8 +1524,9 @@ def run_remedy_train(gen):
         lambda: step(state, batch, generator=gen))
     print(f"remedy train step: launches {launches}, losses "
           + json.dumps({k: v.item() for k, v in metrics.items()}))
-    if min(launches.values()) == 0:
+    if _missed(launches):
         sys.exit("the remedy train step did not launch every kernel")
+    _check_passes("remedy train step", launches, 0)
     if not all(torch.isfinite(v) for v in metrics.values()):
         sys.exit("non-finite remedy training loss")
     trainable = {n for g in opt.param_groups for p in g["params"]
@@ -1610,6 +1651,7 @@ def run_remedy_predict(gen):
     print(f"remedy predict: launches {launches}")
     if launches["roi_align_fwd"] == 0:
         sys.exit("the remedy predict never launched roi_align_fwd")
+    _check_passes("remedy predict", launches, 0)
     if det.boxes.shape != (B, 100, 4) or not (
             torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()
             and torch.isfinite(gt).all()):
@@ -1901,7 +1943,7 @@ def run_remedy_entry_points():
                 "--lr", "1e-5", "--start_from_weights", pth]))
         print(f"cli.train remedies: {time.perf_counter() - t0:.2f} s, launches "
               f"{train_launches}, losses " + json.dumps(run.losses))
-        if min(train_launches.values()) == 0:
+        if _missed(train_launches):
             sys.exit("cli.train with the remedies did not launch every kernel")
         if len(run.losses) != 3 or not all(
                 np.isfinite(v) for m in run.losses for v in m.values()):
@@ -2454,7 +2496,7 @@ def run_single_map_train(torso, gen):
         lambda: step(state, batch, generator=gen))
     print(f"single-map {torso} train step: launches {launches}, losses "
           + json.dumps({k: v.item() for k, v in metrics.items()}))
-    if min(launches.values()) == 0:
+    if _missed(launches):
         sys.exit(f"the single-map {torso} train step did not launch every "
                  "kernel")
     if not all(torch.isfinite(v) for v in metrics.values()):
@@ -2562,7 +2604,7 @@ def check_single_map_against_cpu():
                 {n: p.grad.cpu() for n, p in model.named_parameters()})
 
     (card_l, card_g), n = _counted(lambda: grads("cuda", imgs))
-    if min(n.values()) == 0:
+    if _missed(n):
         sys.exit("the card's single-map loss did not launch both kernels")
     _, nudged_g = grads("cuda", imgs + nudge)
     cpu_l, cpu_g = grads("cpu", imgs)
@@ -2706,7 +2748,7 @@ def run_single_map_entry_points():
                 str(tmp / "mobile_net_start.pt")]))
         print(f"cli.train --model mobile_net: {time.perf_counter() - t0:.2f} "
               f"s, launches {n}, losses " + json.dumps(run.losses))
-        if min(n.values()) == 0 or len(run.losses) != 3 or not all(
+        if _missed(n) or len(run.losses) != 3 or not all(
                 np.isfinite(v) for m in run.losses for v in m.values()):
             sys.exit("cli.train --model mobile_net: no launch, or missing or "
                      "non-finite losses")
@@ -2978,7 +3020,7 @@ def run_keypoint_entry_points():
                 pth]))
         print(f"cli.train --dataset coco_kp: {time.perf_counter() - t0:.2f} "
               f"s, launches {n}, losses " + json.dumps(run.losses))
-        if min(n.values()) == 0 or len(run.losses) != 3 or not all(
+        if _missed(n) or len(run.losses) != 3 or not all(
                 np.isfinite(v) for m in run.losses for v in m.values()):
             sys.exit("cli.train --dataset coco_kp: no launch, or missing or "
                      "non-finite losses")
@@ -3171,7 +3213,7 @@ def run_ddp_nccl_w1(phase8):
         if backends != ["nccl"] or forwards[0] != 3 or dist.is_initialized():
             sys.exit("NCCL W=1 cli.train: no NCCL group, no DDP step, or a "
                      "group left behind")
-        if min(launches.values()) == 0 or max(errs.values()) > 1e-4:
+        if _missed(launches) or max(errs.values()) > 1e-4:
             sys.exit("NCCL W=1 cli.train: a kernel not launched, or losses "
                      "away from the one-process run's")
         check_captured("ddp_nccl_w1_cli_train", fwd, bwd)
@@ -3237,7 +3279,7 @@ def time_ddp_w1_step(gen):
     ddp_img_s, plain_img_s = (float(np.mean(runs[k])) for k in ("ddp", "plain"))
     print(f"train step B={B} in DDP (NCCL, W=1): {runs['ddp']} img/s, plain "
           f"{runs['plain']} img/s, launches {launches}")
-    if min(launches.values()) == 0:
+    if _missed(launches):
         sys.exit("the DDP train step did not launch every kernel")
     return ddp_img_s, plain_img_s, launches
 
@@ -3974,12 +4016,145 @@ def run_bench_phase():
               + json.dumps(record))
         if any(launches[path][k] == 0 for k in kernels):
             sys.exit(f"{path} did not launch each of {kernels}")
+        _check_passes(path, launches[path], 3)   # warm-up + 2 timed calls
         check_captured(path, fwd, bwd)
         for (p, name, shapes), (_, args) in list(NMS_CAPTURED.items()):
             if p == path:
                 _hold_nms(f"{path}: {name} {list(shapes[0])}",
                           getattr(nms, name), args)
     return launches, records
+
+
+# ------------------------------------------------- conv epilogue (phase 16)
+def _epilogue_passes():
+    """(shape, residual) of each conv-epilogue pass, in call order, of one
+    ``default``-precision ResNet50-FPN backbone forward at bench.py's batch
+    (8 frames in the 832x1088 bucket), recorded from the kernel's
+    wrapper."""
+    from detectinblur_tpu_torch.data.batching import model_bucket_for_batch
+    from detectinblur_tpu_torch.models.resnet import ResNetFPN
+    from detectinblur_tpu_torch.ops import conv_epilogue as ce
+
+    H, W = model_bucket_for_batch([SRC_HW] * B)
+    net = ResNetFPN(act_dtype=torch.bfloat16)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    net.cuda()
+    images = torch.rand(B, H, W, 3, device="cuda")
+    passes, kernel = [], ce.conv_epilogue_kernel
+
+    def record(y, shift, residual=None):
+        passes.append((tuple(y.shape), residual is not None))
+        return kernel(y, shift, residual)
+
+    record.launches = kernel.launches     # the kernel counts on its name
+    ce.conv_epilogue_kernel = record
+    try:
+        with torch.no_grad():
+            net(images)
+    finally:
+        ce.conv_epilogue_kernel = kernel
+        kernel.launches = record.launches
+    torch.cuda.synchronize()
+    return passes
+
+
+def _unfolded_pass(y, scale, bias, residual):
+    """The same pass unfolded: FrozenBatchNorm's mul and add (with their
+    casts), then the residual add and the ReLU."""
+    out = y * scale.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
+    if residual is not None:
+        out = out + residual
+    return torch.relu(out)
+
+
+def run_epilogue_phase():
+    """Phase 16: the conv-epilogue kernel (``csrc/conv_epilogue.cu``)
+    held bit for bit against its plain version and timed, in bfloat16
+    and float32, on each distinct pass of a ResNet50-FPN forward at
+    bench.py's shapes: replayed from a CUDA graph (``ms``), and launched
+    back to back through its Python wrapper (``wrapper_ms``, which the
+    host's rate sets on the small passes); beside it its bound (y and
+    the residual read once, out written once, at 3.35 TB/s), the plain
+    version and the unfolded ops it replaced. Returns the kernel's entry
+    of the ``kernels`` line."""
+    from detectinblur_tpu_torch.ops import conv_epilogue as ce
+
+    passes = _epilogue_passes()
+    if len(passes) != PASSES:
+        sys.exit(f"phase 16: {len(passes)} passes a forward, want {PASSES}")
+    counts = {}
+    for p in passes:
+        counts[p] = counts.get(p, 0) + 1
+    print(f"phase 16: {len(passes)} passes a forward, {len(counts)} shapes")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows, totals = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tot = dict.fromkeys(("ms", "wrapper_ms", "bound_ms", "plain_ms",
+                             "unfolded_ms"), 0.0)
+        for (shape, residual), n in counts.items():
+            def draw():
+                return torch.randn(shape, generator=gen, device="cuda").to(
+                    dtype).contiguous(memory_format=torch.channels_last)
+            y, res = draw(), draw() if residual else None
+            shift = torch.randn(shape[1], generator=gen, device="cuda")
+            scale = torch.rand(shape[1], generator=gen, device="cuda") + 0.5
+            got = ce.conv_epilogue_kernel(y, shift, res)
+            ref = ce.conv_epilogue_plain(y, shift, res)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                sys.exit(f"phase 16 {_name(dtype)} {list(shape)} residual "
+                         f"{residual}: the kernel disagrees with its plain "
+                         f"version")
+            del got, ref
+            nbytes = y.numel() * y.element_size() * (3 if residual else 2)
+            out = torch.empty_like(y)
+
+            def make():
+                stream = torch.cuda.current_stream().cuda_stream
+                args = (ce._DTYPES[dtype], y.data_ptr(), shift.data_ptr(),
+                        None if res is None else res.data_ptr(),
+                        out.data_ptr(), y.numel(), shape[1], stream)
+                return lambda: ce._kernel()(*args)
+
+            row = {
+                "dtype": _name(dtype), "shape": list(shape),
+                "residual": residual, "passes": n,
+                "ms": _graph_ms(make),
+                "wrapper_ms": _cuda_ms(lambda: ce.conv_epilogue_kernel(
+                    y, shift, res), 20),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": _cuda_ms(
+                    lambda: ce.conv_epilogue_plain(y, shift, res), 5),
+                "unfolded_ms": _cuda_ms(
+                    lambda: _unfolded_pass(y, scale, shift, res), 5),
+            }
+            row["share"] = row["bound_ms"] / row["ms"]
+            print(f"phase 16 {json.dumps(row)}")
+            rows.append(row)
+            for k in tot:
+                tot[k] += n * row[k]
+            del y, res, out
+        tot["share"] = tot["bound_ms"] / tot["ms"]
+        totals[_name(dtype)] = tot
+        print(f"phase 16 a forward's passes, {_name(dtype)}: "
+              + json.dumps(tot))
+    torch.cuda.empty_cache()
+    bf16 = totals[_name(torch.bfloat16)]
+    return {
+        "name": "conv_epilogue",
+        "route": "cuda",
+        "source": "detectinblur_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": None,
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": bf16["ms"],
+        "plain_ms": bf16["plain_ms"],
+        "bound_ms": bf16["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "unfolded_ms": bf16["unfolded_ms"],
+        "paths": rows,
+    }
 
 
 def main():
@@ -4005,7 +4180,8 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["roi_align_fwd", "roi_align_bwd", "nms"])
+    logs = cuda_build.build(["roi_align_fwd", "roi_align_bwd", "nms",
+                             "conv_epilogue"])
     print(f"kernel build (in parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -4019,8 +4195,8 @@ def main():
     errs = check_kernels(bucket, gen)
     bwd_errs = check_bwd_kernel(bucket, gen)
     cuda_gen = torch.Generator(device="cuda").manual_seed(1)
-    _, launches, nms_launches, feats, rois, serving_img_s = run_slice(
-        cuda_gen)
+    serving_passes, launches, nms_launches, feats, rois, serving_img_s = (
+        run_slice(cuda_gen))
     kernels = time_kernels(feats, rois, launches, errs)
     del feats, rois
     train_launches, levels, captured, train_img_s = run_train(cuda_gen)
@@ -4096,6 +4272,8 @@ def main():
                       "train_step": train_launches["nms_alive"],
                       "remedy_train_step": remedy_train["nms_alive"],
                       "remedy_predict": remedy_predict["nms_alive"]},
+        EPILOGUE: {"serving": serving_passes,
+                   "train_step": train_launches[EPILOGUE]},
     }
     for flag, (serve_n, train_n, _, _, _, _) in single.items():
         for path, counts in ((f"single_map_{flag}_serving", serve_n),
@@ -4126,6 +4304,9 @@ def main():
                 by_path[name][path] = n
     print("phase 15 " + json.dumps(bench | {
         "seconds": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    kernels.append(run_epilogue_phase())
+    print(f"phase 16 {time.perf_counter() - t0:.2f} s")
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         k["launches"] = sum(by_path[k["name"]].values())

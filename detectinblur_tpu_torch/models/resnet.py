@@ -15,13 +15,26 @@ train (``models/backbones.py``). With ``bn_mode`` set, the backbone's
 BatchNorms are ``models/batchnorm.AdaptiveBatchNorm`` in that mode
 instead (the JAX ``norm`` argument, :135,164,197,260).
 
+In the stem and ``Bottleneck`` (ResNet-50's blocks), a FrozenBatchNorm
+whose pair are buffers folds into the convolution before it
+(``_folds``): the convolution runs with ``weight * scale``
+(``folded_weight``, cached while nothing needs its gradient) and one
+pass (``ops/conv_epilogue.py``, span ``norm``) adds the shift and, where
+the block has them, the residual and the ReLU. A block's last pass also
+carries its downsample's shift, so the downsample has no pass of its
+own: a ResNet-50 forward makes 49 passes for its 53 norms. Every
+recomputed fold opens span ``norm.fold``. The trainable pairs,
+``AdaptiveBatchNorm`` and ``BasicBlock`` (resnet18, whose trunks in the
+port have one of the two) run the unfolded composition.
+
 The trunk is the JAX arch table's ``resnet50`` (``Bottleneck``; the
 FPN's and ``--model resnet_50``'s) or ``resnet18`` (``BasicBlock``, the
 blur estimator's, :160,181).
 
 Parameters stay float32 in every precision; ``Conv2d`` and ``Linear`` cast
-their weights to the dtype they compute in on each call, as the JAX
-modules' ``dtype=ACT_DTYPE`` does, so throughput mode computes in bfloat16
+their weights to the dtype they compute in on each call (a folded
+convolution casts its folded weight once), as the JAX modules'
+``dtype=ACT_DTYPE`` does, so throughput mode computes in bfloat16
 while SGD updates float32 weights (a bfloat16 weight would round a
 warmup-sized update away). A ``Conv2d`` whose ``compute_dtype`` is set
 casts its input to it first, as each JAX ``nn.Conv`` does: under
@@ -35,6 +48,7 @@ FPN convs with zero bias.
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -42,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from detectinblur_tpu_torch.models.batchnorm import AdaptiveBatchNorm
+from detectinblur_tpu_torch.ops.conv_epilogue import conv_epilogue
 from detectinblur_tpu_torch.utils.profiling import span
 
 _WIDTHS = (64, 128, 256, 512)
@@ -73,6 +88,7 @@ class FrozenBatchNorm(nn.Module):
 
     def __init__(self, features: int, trainable: bool = False):
         super().__init__()
+        self.trainable = trainable
         if trainable:
             self.scale = nn.Parameter(torch.ones(features))
             self.bias = nn.Parameter(torch.zeros(features))
@@ -84,6 +100,94 @@ class FrozenBatchNorm(nn.Module):
         with span("norm"):
             return (x * self.scale.to(x.dtype)[:, None, None]
                     + self.bias.to(x.dtype)[:, None, None])
+
+
+def _folds(norm: nn.Module) -> bool:
+    """Whether ``norm`` folds into the convolution before it: a
+    FrozenBatchNorm whose pair are buffers."""
+    return isinstance(norm, FrozenBatchNorm) and not norm.trainable
+
+
+# owner module -> (its sources, held weakly; their keys; the derived tensor)
+_DERIVED: "weakref.WeakKeyDictionary[nn.Module, tuple]" = (
+    weakref.WeakKeyDictionary())
+
+
+def _cached(owner: nn.Module, sources: Tuple[torch.Tensor, ...], tag,
+            make: Callable[..., torch.Tensor]) -> torch.Tensor:
+    """``make(*sources)``, kept for ``owner`` until a source is another
+    tensor object or changes. A source is known by the object itself
+    (held weakly) and its ``_version``, which every in-place write bumps
+    (an optimizer step, ``load_state_dict``); its data pointer besides
+    catches what keeps both, ``module.to()`` and ``.data =``. ``tag``
+    (the target dtype) is part of the key, and so is inference mode: a
+    tensor made under it may not be saved for a backward outside it. A
+    miss opens ``norm.fold``."""
+    key = (tag, torch.is_inference_mode_enabled()) + tuple(
+        (t._version, t.data_ptr()) for t in sources)
+    entry = _DERIVED.get(owner)
+    if (entry is not None and entry[1] == key
+            and all(ref() is t for ref, t in zip(entry[0], sources))):
+        return entry[2]
+    with span("norm.fold"):
+        value = make(*sources)
+    _DERIVED[owner] = (tuple(weakref.ref(t) for t in sources), key, value)
+    return value
+
+
+def _fold(weight: torch.Tensor, scale: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """``weight * scale`` per output channel in the parameters' float32,
+    cast once to ``dtype``, channels-last (the layout cuDNN takes it in
+    here)."""
+    return (weight * scale.view(-1, 1, 1, 1)).to(
+        dtype, memory_format=torch.channels_last)
+
+
+def folded_weight(conv: Conv2d, norm: FrozenBatchNorm,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """``conv``'s weight with ``norm``'s scale folded in, in ``dtype``:
+    folded under autograd on every call where a gradient is needed, else
+    cached (predict, the eval step, the frozen stages of a train step)."""
+    w, scale = conv.weight, norm.scale
+    if torch.is_grad_enabled() and (w.requires_grad or scale.requires_grad):
+        with span("norm.fold"):
+            return _fold(w, scale, dtype)
+    return _cached(conv, (w, scale), dtype,
+                   lambda w, s: _fold(w, s, dtype))
+
+
+def folded_conv(conv: Conv2d, norm: FrozenBatchNorm,
+                x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` with ``norm``'s scale folded into the weight; the shift
+    is left to the pass."""
+    if conv.compute_dtype is not None:
+        x = x.to(conv.compute_dtype)
+    return conv._conv_forward(x, folded_weight(conv, norm, x.dtype), None)
+
+
+def _conv_relu(conv: Conv2d, norm: FrozenBatchNorm, x: torch.Tensor,
+               residual: Optional[torch.Tensor] = None,
+               shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """relu(norm(conv(x)) [+ residual]): the folded convolution, then one
+    pass adding ``shift`` (``norm``'s when None)."""
+    y = folded_conv(conv, norm, x)
+    with span("norm"):
+        return conv_epilogue(y, norm.bias if shift is None else shift,
+                             residual)
+
+
+def _block_out(block: nn.Module, conv: Conv2d, norm: FrozenBatchNorm,
+               y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A folded block's last pass, relu(norm(conv(y)) + identity): the
+    identity is ``x``, or the downsample's folded convolution of ``x``,
+    whose shift rides the pass (the two shifts summed once and cached)."""
+    if block.downsample_0 is None:
+        return _conv_relu(conv, norm, y, residual=x)
+    down = block.downsample_1
+    identity = folded_conv(block.downsample_0, down, x)
+    shift = _cached(down, (norm.bias, down.bias), None, torch.add)
+    return _conv_relu(conv, norm, y, identity, shift)
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> Conv2d:
@@ -110,6 +214,10 @@ class Bottleneck(nn.Module):
             self.downsample_1 = norm(out_ch)
 
     def forward(self, x):
+        if _folds(self.bn1):
+            y = _conv_relu(self.conv1, self.bn1, x)
+            y = _conv_relu(self.conv2, self.bn2, y)
+            return _block_out(self, self.conv3, self.bn3, y, x)
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
@@ -199,7 +307,10 @@ class ResNet(nn.Module):
                 cin = width * block.expansion
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
-        x = F.relu(self.bn1(self.conv1(x)))
+        if _folds(self.bn1):
+            x = _conv_relu(self.conv1, self.bn1, x)
+        else:
+            x = F.relu(self.bn1(self.conv1(x)))
         # torch maxpool pads with -inf, as the JAX version does explicitly.
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []

@@ -686,3 +686,107 @@ def test_predict_and_eval_step_never_wait_on_the_card(cuda):
     for d in dets:
         assert d.boxes.shape == (2, 100, 4)
         assert torch.isfinite(d.boxes).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,residual", [
+    ((8, 256, 208, 272), True),     # layer1's last pass at detect_b8
+    ((8, 64, 416, 544), False),     # the stem's pass at detect_b8
+], ids=["residual", "relu_only"])
+def test_conv_epilogue_kernel_matches_plain(cuda, dtype, shape, residual):
+    """The kernel and the plain version both sum (y + shift) + residual in
+    float32, ReLU and round once: equal bit for bit, at the detect_b8
+    cell's shapes, and on NaN as torch.relu."""
+    from detectinblur_tpu_torch.ops.conv_epilogue import (
+        conv_epilogue,
+        conv_epilogue_kernel,
+        conv_epilogue_plain,
+    )
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def draw():
+        return torch.randn(shape, generator=gen, device=cuda).to(dt).contiguous(
+            memory_format=torch.channels_last)
+
+    y, res = draw(), draw() if residual else None
+    y[0, 1, 2, 3] = float("nan")
+    shift = torch.randn(shape[1], generator=gen, device=cuda)
+    before = conv_epilogue_kernel.launches
+    out = conv_epilogue(y, shift, res)
+    torch.cuda.synchronize()
+    assert conv_epilogue_kernel.launches == before + 1
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    ref = conv_epilogue_plain(y, shift, res)
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert out[0, 1, 2, 3].isnan()
+    assert torch.equal(torch.nan_to_num(out), torch.nan_to_num(ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_epilogue_gradient_matches_plain(cuda, dtype):
+    """The autograd Function's backward (grad * (out > 0), the same for y
+    and the residual) against autograd through the plain version."""
+    from detectinblur_tpu_torch.ops.conv_epilogue import (
+        conv_epilogue,
+        conv_epilogue_plain,
+    )
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    shape = (2, 64, 24, 40)
+    y, res, cot = (torch.randn(shape, generator=gen, device=cuda).to(dt)
+                   .contiguous(memory_format=torch.channels_last)
+                   for _ in range(3))
+    shift = torch.randn(64, generator=gen, device=cuda)
+    grads = []
+    for fn in (conv_epilogue, conv_epilogue_plain):
+        yg, rg = (t.clone().requires_grad_(True) for t in (y, res))
+        (fn(yg, shift, rg) * cot).sum().backward()
+        grads.append((yg.grad, rg.grad))
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_folded_resnet_card_vs_cpu(cuda):
+    """ResNet-50 with random non-trivial FrozenBatchNorm pairs, folded on
+    both devices, float32 with TF32 off: C2..C5 within 1e-4 of each
+    level's max (cuDNN and the CPU sum the convolutions in another
+    order), and the card's folded trunk against its own unfolded one."""
+    from detectinblur_tpu_torch.models import resnet
+
+    gen = torch.Generator().manual_seed(0)
+    model = resnet.ResNet("resnet50")
+    resnet.reset_trunk(model, gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, resnet.FrozenBatchNorm):
+                m.scale.copy_(torch.rand(m.scale.shape, generator=gen) * 0.4
+                              + 0.3)
+                m.bias.copy_(torch.rand(m.bias.shape, generator=gen) * 0.2
+                             - 0.1)
+    x = torch.randn(2, 3, 96, 128, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            cpu = model(x)
+            model.to(cuda)
+            card = model(x.to(cuda))
+            folds = resnet._folds
+            resnet._folds = lambda norm: False
+            try:
+                unfolded = model(x.to(cuda))
+            finally:
+                resnet._folds = folds
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for c, r, u in zip(card, cpu, unfolded):
+        scale = r.abs().max().item()
+        assert (c.cpu() - r).abs().max().item() <= 1e-4 * scale
+        assert (c - u).abs().max().item() <= 1e-4 * scale

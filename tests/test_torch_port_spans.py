@@ -3,9 +3,11 @@ profiler a span is a shared no-op that builds no ``record_function``;
 under ``torch.profiler`` each is a ``user_annotation`` range of the
 Chrome trace, where the benchmark's readers find them. A train step
 records ``train.forward`` around ``loss.backbone`` around one ``norm``
-per norm layer, then ``train.backward`` and ``train.optimizer``, with one
-``blur`` and one ``nms``; ``predict`` its five ``predict.*`` stages with
-NMS inside the RPN's and the postprocess's; the eval steps their
+per folded pass (49 for the 53 norms) and one ``norm.fold`` per
+trainable folded convolution (42), then ``train.backward`` and
+``train.optimizer``, with one ``blur`` and one ``nms``; ``predict`` its
+five ``predict.*`` stages with NMS inside the RPN's and the
+postprocess's; the eval steps their
 ``eval.*`` stages. Full ResNet50-FPN widths at a 64x64 bucket, random
 weights."""
 
@@ -39,6 +41,7 @@ HW = np.array([[64, 64], [56, 60]], np.int32)
 RPN_KW = dict(pre_nms_top_n_train=200, post_nms_top_n_train=100,
               pre_nms_top_n_test=200, post_nms_top_n_test=100)
 BOX_KW = dict(batch_size_per_image=64, nms_pool=256, detections_per_img=20)
+PASSES = 49   # a ResNet-50 forward's folded passes (stem, 3 a block)
 PREDICT = ("predict.preprocess", "predict.backbone", "predict.rpn",
            "predict.roi_align", "predict.head_postprocess")
 
@@ -150,8 +153,14 @@ def test_a_train_step_records_its_stages(model, tmp_path):
     norms = sum(isinstance(m, (FrozenBatchNorm, AdaptiveBatchNorm))
                 for m in model.modules())
     assert norms == 53
-    assert len(_named(spans, "norm")) == norms
-    assert _count_inside(spans, "norm", "loss.backbone") == norms
+    # The 53 FrozenBatchNorms fold into their convolutions: one pass a
+    # convolution, the downsample's shift riding conv3's, 49 in all.
+    assert len(_named(spans, "norm")) == PASSES
+    assert _count_inside(spans, "norm", "loss.backbone") == PASSES
+    # layer2-4's 42 convolutions train and fold on every step; the stem's
+    # and layer1's 11 are frozen and cached.
+    assert len(_named(spans, "norm.fold")) == 42
+    assert _count_inside(spans, "norm.fold", "loss.backbone") == 42
     assert _count_inside(spans, "loss.backbone", "train.forward") == 1
     assert _count_inside(spans, "nms", "train.forward") == 1
     (fwd,), (bwd,), (opt_,), (blur,) = (
@@ -162,10 +171,12 @@ def test_a_train_step_records_its_stages(model, tmp_path):
 
 def test_predict_records_its_five_stages_and_nms_inside(model, tmp_path):
     b = _batch()
+    model.predict(b.images, HW, BUCKET)     # folds the weights once
     spans = _spans(lambda: model.predict(b.images, HW, BUCKET), tmp_path)
     for name in PREDICT:
         assert len(_named(spans, name)) == 1, name
-    assert _count_inside(spans, "norm", "predict.backbone") == 53
+    assert _count_inside(spans, "norm", "predict.backbone") == PASSES
+    assert not _named(spans, "norm.fold")
     assert _count_inside(spans, "nms", "predict.rpn") >= 1
     assert _count_inside(spans, "nms", "predict.head_postprocess") >= 1
     assert {s[0] for s in spans} == set(PREDICT) | {"norm", "nms"}
