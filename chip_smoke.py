@@ -25,7 +25,10 @@ Phases (any failure exits non-zero and prints no result):
      norm groups, exit if anything in blur + predict synchronizes with the
      host (sync debug mode "warn"), time it (img/s and ms per stage with
      CUDA events; img/s with NMS through the kernel and the plain version
-     in turns).
+     in turns, predict eager on both sides). Its counted call and timed
+     windows must replay predict's CUDA graphs, and one replayed call runs
+     under the profiler: each hand kernel must run, counted by name, as
+     often as the replay's count of it.
   5. Training, with bench_train.py's protocol: the same batch shape with
      16 random GT boxes per image, blur and PSF-driven GT expansion, then
      the loss, backward and SGD (lr 0.04, 1000 steps per epoch, warmup) of
@@ -69,7 +72,8 @@ Phases (any failure exits non-zero and prints no result):
      handed it (one per model bucket and batch shape). The clean eval runs
      again under torch.profiler, for the device's busy share and each
      stage of the CLI's own step, four times with NMS through the kernel
-     and the plain version in turns (the same stats; img/s and step ms),
+     and the plain version in turns (the same stats; img/s and step ms,
+     predict eager on both sides),
      and on the CPU, whose 19 stats must match the card's. Prints each eval loop's wall-clock img/s (a smoke
      reading: each bucket's first step is cold), the wall ms of its steps
      (CUDA events around each step) and the share outside them, the model
@@ -215,8 +219,10 @@ Phases (any failure exits non-zero and prints no result):
      ``serve.run`` and ``train.run`` in this process at one window of 2
      calls under the launch counters (paths ``bench_serve``,
      ``bench_train``): each must launch its kernels, the conv epilogue 49
-     times in each of its 3 forwards, each held against its plain version
-     on the inputs they handed it.
+     times in each of its forwards (serving's 2 warm-up calls, the second
+     capturing predict's CUDA graphs, and 2 timed calls, which must
+     replay them; the train step's warm-up and 2 steps), each held against
+     its plain version on the inputs they handed it.
 
  16. The conv-epilogue kernel (``csrc/conv_epilogue.cu``, the pass after
      each convolution whose FrozenBatchNorm folded into it): the shapes of
@@ -507,7 +513,10 @@ def _capture_roi_align(fwd, bwd):
     None for P2..P5), ``bwd`` gets (cotangent,
     geometry saved by the forward, rois per image, level shapes, feature
     dtype) keyed by (cotangent's shape, level shapes, dtype). Nothing is
-    launched for it, so the launch counts stay the path's own."""
+    launched for it, so the launch counts stay the path's own. A capture
+    of predict's CUDA graphs records nothing (its tensors hold no values
+    yet), and its replays run no Python: the first call of each of
+    predict's keys runs eagerly, and ``_eager_predict`` makes others."""
     from detectinblur_tpu_torch.ops import roi_align_cuda
     from detectinblur_tpu_torch.ops.roi_align import RoIGeometry
 
@@ -517,7 +526,7 @@ def _capture_roi_align(fwd, bwd):
     def capture_fwd(ctx, boxes, spatial_scale, *features):
         key = (tuple(boxes.shape), tuple(tuple(f.shape[1:3]) for f in features),
                features[0].dtype, spatial_scale)
-        if key not in fwd:
+        if key not in fwd and not torch.cuda.is_current_stream_capturing():
             fwd[key] = (boxes.detach().clone(), [f.detach() for f in features])
         return forward(ctx, boxes, spatial_scale, *features)
 
@@ -549,7 +558,8 @@ def _capture_nms(path):
     """While open, record in ``NMS_CAPTURED`` what ``models/rpn.py`` hands
     ``grouped_nms_presorted`` and ``models/roi_heads.py`` hands
     ``batched_nms`` under ``path``, the first call of each shape (clones:
-    no kernel is launched for it)."""
+    no kernel is launched for it) outside a capture of CUDA graphs, as
+    ``_capture_roi_align``."""
     from detectinblur_tpu_torch.models import roi_heads, rpn
 
     sites = ((rpn, "grouped_nms_presorted"), (roi_heads, "batched_nms"))
@@ -559,7 +569,8 @@ def _capture_nms(path):
         def call(*args):
             key = (path, name, tuple(tuple(a.shape) for a in args
                                      if isinstance(a, torch.Tensor)))
-            if key not in NMS_CAPTURED:
+            if (key not in NMS_CAPTURED
+                    and not torch.cuda.is_current_stream_capturing()):
                 NMS_CAPTURED[key] = (name, [
                     a.detach().clone() if isinstance(a, torch.Tensor) else a
                     for a in args])
@@ -580,7 +591,9 @@ def _nms_route(plain, record=None):
     """While open, the NMS functions' greedy pass (``ops/nms.py::
     _alive_sorted``) runs the plain version (``plain``) or the kernel, as
     the port routes it; ``record`` gets each call's (boxes, alive in,
-    threshold, alive out). A measurement of this script: the package has
+    threshold, alive out). ``predict`` runs eagerly meanwhile
+    (``_eager_predict``), so turns timed under it time eager predict, not
+    its replayed graphs. A measurement of this script: the package has
     no such switch."""
     from detectinblur_tpu_torch.ops import nms
 
@@ -598,9 +611,29 @@ def _nms_route(plain, record=None):
 
     nms._alive_sorted = route
     try:
-        yield
+        with _eager_predict():
+            yield
     finally:
         nms._alive_sorted = routed
+
+
+@contextlib.contextmanager
+def _eager_predict():
+    """While open, ``predict`` runs eagerly: a replay of its CUDA graphs
+    (``utils/graphs.py``) runs no Python, so no patch of this script
+    would reach it. The package has no such switch."""
+    from detectinblur_tpu_torch.utils import graphs
+
+    graphed = graphs.CallGraphs.__call__
+
+    def eager(self, device, module, fn, key, tensors, make_consts):
+        return fn(*tensors, make_consts())
+
+    graphs.CallGraphs.__call__ = eager
+    try:
+        yield
+    finally:
+        graphs.CallGraphs.__call__ = graphed
 
 
 @contextlib.contextmanager
@@ -859,13 +892,16 @@ def run_slice(gen):
     blur_detect()
     torch.cuda.synchronize()
 
-    # The main path, counted.
-    det, counted = _counted(blur_detect)
+    # The main path, counted: the third call replays predict's graphs.
+    (det, counted), graphed = _graphed(lambda: _counted(blur_detect))
     launches, nms_launches = counted["roi_align_fwd"], counted["nms_alive"]
-    print(f"main path: launches {counted}")
+    print(f"main path: launches {counted}, predict graphs {graphed}")
     if launches == 0 or nms_launches == 0:
         sys.exit("the main path never launched roi_align_fwd or nms_alive")
+    if graphed != {"replay": 1}:
+        sys.exit(f"the main path's third call ran {graphed}, not a replay")
     _check_passes("serving", counted, 1)
+    _check_replays("serving", blur_detect)
     # Nothing in blur + predict may wait on the host.
     sites = _sync_sites(blur_detect)
     print("serving predict, synchronizing CUDA operations by the port's "
@@ -884,17 +920,24 @@ def run_slice(gen):
     # Throughput: windows of device time, lower median.
     torch.cuda.reset_peak_memory_stats()
     windows, iters = 5, 5
-    rates = [B * iters / (_cuda_ms(blur_detect, iters) * iters / 1e3)
-             for _ in range(windows)]
+    rates, graphed = _graphed(lambda: [
+        B * iters / (_cuda_ms(blur_detect, iters) * iters / 1e3)
+        for _ in range(windows)])
+    print(f"serving windows: predict graphs {graphed}")
+    if set(graphed) != {"replay"}:
+        sys.exit(f"serving windows ran {graphed}, not replays alone")
     img_s = sorted(rates)[(windows - 1) // 2]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # NMS through the kernel and through the plain version, in turns.
+    # NMS through the kernel and through the plain version, in turns,
+    # predict eager on both sides (``_nms_route``): not the serving rate,
+    # which replays predict's graphs.
     turns = {"kernel": [], "plain": []}
     for route in ("kernel", "plain", "plain", "kernel"):
         with _nms_route(route == "plain"):
             turns[route].append(B * iters / (_cuda_ms(blur_detect, iters)
                                              * iters / 1e3))
-    print("serving img/s, NMS kernel vs plain in turns " + json.dumps(turns))
+    print("eager-predict img/s (not the replayed serving rate), NMS kernel "
+          "vs plain in turns " + json.dumps(turns))
 
     # Per stage, device time between CUDA events.
     names = ("blur", "preprocess", "backbone", "rpn", "roi_align",
@@ -1135,13 +1178,74 @@ def _kernels():
 
 def _counted(fn):
     """(fn's result, launches of each kernel during fn) with the counts
-    set to 0 just before and read just after."""
+    set to 0 just before and read just after: those its Python wrapper
+    made, and those replays of predict's CUDA graphs made, which run no
+    wrapper and count what their captures launched (``replayed``,
+    ``utils/graphs.py``; printed apart, and held against the kernels a
+    profiler sees by name on the serving path, ``_check_replays``)."""
     kernels = _kernels()
     for k in kernels.values():
-        k.launches = 0
+        k.launches = k.replayed = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: k.launches for name, k in kernels.items()}
+    replayed = {name: k.replayed for name, k in kernels.items()
+                if k.replayed}
+    if replayed:
+        print(f"  of which replayed graphs (their captures' counts): "
+              f"{replayed}")
+    return out, {name: k.launches + k.replayed
+                 for name, k in kernels.items()}
+
+
+# Each hand kernel's launch counter -> its device kernel's name (the scan
+# kernel is the one every ``nms_alive`` call launches).
+KERNEL_NAMES = {"roi_align_fwd": "roi_align_fwd_kernel",
+                "roi_align_bwd": "roi_align_bwd_kernel",
+                "nms_alive": "nms_scan_kernel",
+                EPILOGUE: "conv_epilogue_kernel"}
+
+
+def _check_replays(path, fn):
+    """Run ``fn``, whose every predict must replay its CUDA graphs, under
+    ``torch.profiler``, and exit unless each hand kernel ran on the card,
+    counted by its name, as often as the replays said they launched it
+    (the wrappers' ``replayed``), with no launch through a wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels = _kernels()
+    for k in kernels.values():
+        k.launches = k.replayed = 0
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, graphed = _graphed(fn)
+            torch.cuda.synchronize()
+        trace = str(Path(tmp) / "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            ran = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    by_name = {name: sum(KERNEL_NAMES[name] in n for n in ran)
+               for name in kernels}
+    said = {name: k.replayed for name, k in kernels.items()}
+    wrapped = {name: k.launches for name, k in kernels.items()}
+    print(f"{path}: predict graphs {graphed}; the replays said they "
+          f"launched {said}, the profiler saw by name {by_name}, the "
+          f"wrappers launched {wrapped}")
+    if set(graphed) != {"replay"} or any(wrapped.values()) or said != by_name:
+        sys.exit(f"{path}: the replayed kernels differ from their count")
+
+
+def _graphed(fn):
+    """(fn's result, how ``utils/graphs.py`` ran predict during fn: the
+    change of each nonzero count of ``graphs.counts``)."""
+    from detectinblur_tpu_torch.utils import graphs
+
+    before = dict(graphs.counts)
+    out = fn()
+    return out, {k: n - before[k] for k, n in graphs.counts.items()
+                 if n != before[k]}
 
 
 def _missed(launches):
@@ -1372,9 +1476,10 @@ def run_entry_points(keep):
             fwd = {}
             t0 = time.perf_counter()
             with _capture_roi_align(fwd, {}), _capture_nms(path[0]):
-                got, launches = _counted(lambda: cli_eval.main(argv))
+                (got, launches), graphed = _graphed(
+                    lambda: _counted(lambda: cli_eval.main(argv)))
             print(f"{path[0]}: {time.perf_counter() - t0:.2f} s, launches "
-                  f"{launches}")
+                  f"{launches}, predict graphs {graphed}")
             results = {0: got} if cells == 1 else got
             if len(results) != cells:
                 sys.exit(f"{path[0]}: {len(results)} cells, want {cells}")
@@ -1645,7 +1750,7 @@ def run_remedy_predict(gen):
     for _ in range(2):
         run()
     fwd = {}
-    with _capture_roi_align(fwd, {}):
+    with _capture_roi_align(fwd, {}), _eager_predict():
         run()
     (det, gt), launches = _counted(run)
     print(f"remedy predict: launches {launches}")
@@ -2406,7 +2511,7 @@ def run_single_map_serving(torso, gen):
             break
     fwd = {}
     with _capture_roi_align(fwd, {}), _capture_nms(
-            f"single_map_{torso}_serving"):
+            f"single_map_{torso}_serving"), _eager_predict():
         blur_detect()
     det, launches = _counted(blur_detect)
     print(f"single-map {torso} serving: bucket {bucket}, class scores x"
@@ -4004,19 +4109,25 @@ def run_bench_phase():
     records = {name: run_bench_module(name) for name in BENCH_LINES}
     records["pipeline_epochs"] = pipeline_epochs()
     launches = {}
-    for path, run, kernels in (
+    # Serving: 2 warm-up calls (eager, capture) and 2 replayed timed
+    # calls; the train step: a warm-up and 2 timed steps, no predict.
+    for path, run, kernels, forwards, graphed_want in (
             ("bench_serve", lambda: serve.run(iters=2, repeats=1),
-             ("roi_align_fwd", "nms_alive")),
+             ("roi_align_fwd", "nms_alive"), 4,
+             {"first": 1, "capture": 1, "replay": 2}),
             ("bench_train", lambda: train.run(iters=2, repeats=1),
-             ("roi_align_fwd", "roi_align_bwd", "nms_alive"))):
+             ("roi_align_fwd", "roi_align_bwd", "nms_alive"), 3, {})):
         fwd, bwd = {}, {}
         with _capture_roi_align(fwd, bwd), _capture_nms(path):
-            record, launches[path] = _counted(run)
+            (record, launches[path]), graphed = _graphed(
+                lambda: _counted(run))
         print(f"{path} in this process: launches {launches[path]}, "
-              + json.dumps(record))
+              f"predict graphs {graphed}, " + json.dumps(record))
         if any(launches[path][k] == 0 for k in kernels):
             sys.exit(f"{path} did not launch each of {kernels}")
-        _check_passes(path, launches[path], 3)   # warm-up + 2 timed calls
+        if graphed != graphed_want:
+            sys.exit(f"{path} ran predict {graphed}, want {graphed_want}")
+        _check_passes(path, launches[path], forwards)
         check_captured(path, fwd, bwd)
         for (p, name, shapes), (_, args) in list(NMS_CAPTURED.items()):
             if p == path:

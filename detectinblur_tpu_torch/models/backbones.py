@@ -248,7 +248,6 @@ class SingleMapFasterRCNN(TwoStageDetector):
         set_compute_dtype(self.backbone, self.act_dtype)
         if device.type != "meta":
             self.reset_parameters(torch.Generator().manual_seed(seed))
-        self._anchors = {}
         if device.type == "cuda":
             set_fp32_math()
         self.to(device=device, memory_format=torch.channels_last)

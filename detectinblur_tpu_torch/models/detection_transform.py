@@ -8,7 +8,8 @@ it.
 
 The sizes are computed on the host in float32, with the same arithmetic as
 the JAX version, from ``hw`` (a host array), so no device sync is needed to
-size the ``F.interpolate`` calls. The JAX version replicates the last valid
+size the ``F.interpolate`` calls; ``resize_batch`` takes them computed
+(``predict`` holds them, and their device copies, a key at a time). The JAX version replicates the last valid
 row and column one pixel outward (``resize_valid`` :57-60) because its
 bucket holds zeros there; interpolating only the valid crop clamps at its
 edge, which is the same thing.
@@ -39,7 +40,8 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def _host_hw(hw) -> np.ndarray:
+def host_hw(hw) -> np.ndarray:
+    """``hw`` (a host array, or a tensor, copied back) as int64 [B, 2]."""
     if isinstance(hw, torch.Tensor):
         hw = hw.cpu().numpy()
     return np.asarray(hw).astype(np.int64).reshape(-1, 2)
@@ -60,7 +62,7 @@ def resized_valid_hw(hw, out_shape: Tuple[int, int], min_size: int = 800,
     min/max-side resize (``bucket_hw``)."""
     return np.asarray([bucket_hw((h, w), resize_scale(h, w, min_size,
                                                       max_size), out_shape)
-                       for h, w in _host_hw(hw)], np.int64).reshape(-1, 2)
+                       for h, w in host_hw(hw)], np.int64).reshape(-1, 2)
 
 
 def bucket_hw(hw, scale, out_shape: Tuple[int, int]) -> Tuple[int, int]:
@@ -127,6 +129,28 @@ def resize_boxes(boxes: torch.Tensor, orig_hw: torch.Tensor,
     return torch.stack([x1 * rx, y1 * ry, x2 * rx, y2 * ry], dim=-1)
 
 
+def resize_batch(images: torch.Tensor, hw: np.ndarray, new_hw: np.ndarray,
+                 out_shape: Tuple[int, int],
+                 means: Optional[torch.Tensor] = None,
+                 stds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The valid [h, w] region of each image of ``images`` [B, Hb0, Wb0, 3]
+    (raw 0..1, at the top-left) normalized, with its row of ``means`` and
+    ``stds`` when given, and resized to exactly its ``new_hw`` inside a
+    zero [B, Ho, Wo, 3] float32 bucket. ``hw`` and ``new_hw`` are host
+    int64 [B, 2] arrays (``host_hw``, ``resized_valid_hw``)."""
+    Ho, Wo = out_shape
+    out = images.new_zeros(images.shape[0], Ho, Wo, images.shape[-1],
+                           dtype=torch.float32)
+    for b in range(images.shape[0]):
+        h, w = (int(v) for v in hw[b])
+        nh, nw = (int(v) for v in new_hw[b])
+        img = normalize_image(images[b, :h, :w].float(),
+                              None if means is None else means[b],
+                              None if stds is None else stds[b])
+        out[b, :nh, :nw] = _resize(img, nh, nw)
+    return out
+
+
 def preprocess_batch(
     images: torch.Tensor,   # [B, Hb0, Wb0, 3] raw 0..1, valid at top-left
     hw,                     # [B, 2] valid sizes, host array or tensor
@@ -145,22 +169,13 @@ def preprocess_batch(
     Returns (batched [B, Ho, Wo, 3] float32, new_hw [B, 2] int64 on the
     images' device, copied there without a host sync).
     """
-    Ho, Wo = out_shape
     B = images.shape[0]
-    device = images.device
-    hw_np = _host_hw(hw)
+    hw_np = host_hw(hw)
     new_hw = resized_valid_hw(hw_np, out_shape, min_size, max_size)
-    out = images.new_zeros(B, Ho, Wo, images.shape[-1], dtype=torch.float32)
-    for b in range(B):
-        h, w = (int(v) for v in hw_np[b])
-        nh, nw = (int(v) for v in new_hw[b])
-        img = normalize_image(images[b, :h, :w].float(),
-                              None if means is None else means[b],
-                              None if stds is None else stds[b])
-        out[b, :nh, :nw] = _resize(img, nh, nw)
+    out = resize_batch(images, hw_np, new_hw, out_shape, means, stds)
     if crop_images:
         mh, mw = (int(v) // 32 * 32 for v in new_hw.min(axis=0))
         out[:, mh:] = 0.0
         out[:, :, mw:] = 0.0
         new_hw = np.tile(np.asarray([[mh, mw]], np.int64), (B, 1))
-    return out, to_device_async(new_hw, device)
+    return out, to_device_async(new_hw, images.device)

@@ -19,7 +19,10 @@ of the public stage methods
 a caller may also run one by one (the smoke script times them so). Each
 runs inside a ``utils.profiling.span`` (``predict.rpn`` and so on), and
 ``loss`` runs its backbone in ``loss.backbone``, so a profiler trace of
-any caller shows where its time goes.
+any caller shows where its time goes. On a card ``predict`` replays from
+CUDA graphs (``utils/graphs.py``), one segment a stage and one a ``nms``
+span, from the second call with the same key on: the inputs' shapes,
+dtypes and strides, ``hw``, ``bucket``, and weights unchanged.
 
 ``loss`` runs the same stages in training form (train top-k sizes, anchor
 and roi sampling, RoIAlign through the differentiable kernel pair) and
@@ -46,13 +49,17 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from detectinblur_tpu_torch.models.batchnorm import training_mode
 from detectinblur_tpu_torch.models.detection_transform import (
+    host_hw,
     preprocess_batch,
+    resize_batch,
     resize_boxes,
+    resized_valid_hw,
 )
 from detectinblur_tpu_torch.models.resnet import ResNetFPN
 from detectinblur_tpu_torch.models.roi_heads import (
@@ -81,7 +88,12 @@ from detectinblur_tpu_torch.utils.device import (
     set_fp32_math,
     to_device_async,
 )
+from detectinblur_tpu_torch.utils.graphs import CallGraphs
 from detectinblur_tpu_torch.utils.profiling import span
+
+# The spans at which a capture of predict cuts its graph segments.
+PREDICT_SPANS = ("predict.preprocess", "predict.backbone", "predict.rpn",
+                 "predict.roi_align", "predict.head_postprocess", "nms")
 
 
 class FasterRCNNConfig(NamedTuple):
@@ -112,14 +124,30 @@ class LossDraws(NamedTuple):
     roi: Tuple[torch.Tensor, torch.Tensor]
 
 
+class PredictPlan(NamedTuple):
+    """What ``predict`` reads of ``hw`` and ``bucket``, made once a key:
+    the sizes on the host (int64 [B, 2]) and their device copies."""
+    bucket: Tuple[int, int]
+    hw: np.ndarray
+    new_hw: np.ndarray
+    hw_device: torch.Tensor
+    new_hw_device: torch.Tensor
+
+
 class TwoStageDetector(nn.Module):
     """The stages that every Faster R-CNN of the port shares: preprocess,
     propose, detect, and ``predict`` / ``loss`` over them. A detector
     gives ``cfg`` (``precision``, ``min_size``, ``max_size``, ``rpn``,
     ``box``), the submodules ``backbone`` / ``rpn_head`` / ``box_head`` /
-    ``box_predictor``, and its own ``features``, ``level_anchors`` and
-    ``pool``; ``_training_torso`` is the backbone's state while ``loss``
-    runs it."""
+    ``box_predictor``, and its own ``features``, ``level_anchors`` (cached
+    in ``_anchors``) and ``pool``; ``_training_torso`` is the backbone's
+    state while ``loss`` runs it. Its predict graphs are its own and go
+    with it."""
+
+    def __init__(self):
+        super().__init__()
+        self._anchors = {}
+        self._predict_graphs = CallGraphs("predict", PREDICT_SPANS)
 
     @property
     def device(self) -> torch.device:
@@ -165,20 +193,42 @@ class TwoStageDetector(nn.Module):
                 lam2s: Optional[torch.Tensor] = None) -> Detections:
         """images [B, Hb0, Wb0, 3] raw 0..1 with the valid region at the
         top-left, ``hw`` [B, 2] valid sizes (a host array), ``bucket`` the
-        static model bucket -> fixed-size ``Detections``. ``means`` /
-        ``stds`` [B, 3] and ``thetas``, ``lam1s``, ``lam2s`` [B] are the
-        remedies' per-image inputs."""
+        static model bucket -> fixed-size ``Detections``, fresh tensors on
+        every call. ``means`` / ``stds`` [B, 3] and ``thetas``, ``lam1s``,
+        ``lam2s`` [B] are the remedies' per-image inputs. On a card the
+        call replays from CUDA graphs once its key repeats
+        (``utils/graphs.py``)."""
+        hw = host_hw(hw)
+        bucket = tuple(int(v) for v in bucket)
+        return self._predict_graphs(
+            self.device, self, self._predict,
+            (bucket, hw.shape, hw.tobytes()),
+            (images, means, stds, thetas, lam1s, lam2s),
+            lambda: self._plan(hw, bucket))
+
+    def _plan(self, hw: np.ndarray, bucket: Tuple[int, int]) -> PredictPlan:
+        new_hw = resized_valid_hw(hw, bucket, self.cfg.min_size,
+                                  self.cfg.max_size)
+        return PredictPlan(bucket, hw, new_hw,
+                           to_device_async(hw, self.device),
+                           to_device_async(new_hw, self.device))
+
+    def _predict(self, images, means, stds, thetas, lam1s, lam2s,
+                 plan: PredictPlan) -> Detections:
+        """``predict``'s stages, each in its span; everything it launches
+        lies inside them (a capture cuts its segments there)."""
         with span("predict.preprocess"):
-            batched, new_hw = self.preprocess(images.to(self.device), hw,
-                                              bucket, means, stds)
+            batched = resize_batch(images.to(self.device), plan.hw,
+                                   plan.new_hw, plan.bucket, means, stds)
         with span("predict.backbone"):
             feats = self.features(batched, thetas, lam1s, lam2s)
         with span("predict.rpn"):
-            proposals, valid = self.propose(feats, new_hw)
+            proposals, valid = self.propose(feats, plan.new_hw_device)
         with span("predict.roi_align"):
             pooled = self.pool(feats, proposals, valid)
         with span("predict.head_postprocess"):
-            return self.detect(pooled, proposals, valid, new_hw, hw)
+            return self.detect(pooled, proposals, valid, plan.new_hw_device,
+                               plan.hw_device)
 
     def forward(self, *args, **kwargs) -> Detections:
         """``predict``: ``torch.func.functional_call`` calls ``forward``,
@@ -210,7 +260,9 @@ class TwoStageDetector(nn.Module):
         losses summed over the processes are the global batch's (JAX's
         mean over a sharded batch). ``means``, ``stds`` and the warp's as in
         ``predict``; the BatchNorms of the ``train`` and ``acclimation``
-        modes update their running statistics."""
+        modes update their running statistics. Drops predict's CUDA
+        graphs: the step that follows writes the weights they read."""
+        self._predict_graphs.clear()
         cfg = self.cfg
         device = self.device
         B = images.shape[0]
@@ -295,7 +347,6 @@ class FasterRCNN(TwoStageDetector):
                 num_classes=config.num_classes)
         if device.type != "meta":
             self.reset_parameters(torch.Generator().manual_seed(seed))
-        self._anchors = {}
         if device.type == "cuda":
             set_fp32_math()
         self.to(device=device, memory_format=torch.channels_last)

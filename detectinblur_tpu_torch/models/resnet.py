@@ -57,6 +57,7 @@ from torch import nn
 
 from detectinblur_tpu_torch.models.batchnorm import AdaptiveBatchNorm
 from detectinblur_tpu_torch.ops.conv_epilogue import conv_epilogue
+from detectinblur_tpu_torch.utils.graphs import hold
 from detectinblur_tpu_torch.utils.profiling import span
 
 _WIDTHS = (64, 128, 256, 512)
@@ -122,17 +123,19 @@ def _cached(owner: nn.Module, sources: Tuple[torch.Tensor, ...], tag,
     catches what keeps both, ``module.to()`` and ``.data =``. ``tag``
     (the target dtype) is part of the key, and so is inference mode: a
     tensor made under it may not be saved for a backward outside it. A
-    miss opens ``norm.fold``."""
+    miss opens ``norm.fold``. A CUDA graph capture reading the tensor
+    keeps it (``utils/graphs.py::hold``): a later miss replaces it here,
+    not in the graphs."""
     key = (tag, torch.is_inference_mode_enabled()) + tuple(
         (t._version, t.data_ptr()) for t in sources)
     entry = _DERIVED.get(owner)
     if (entry is not None and entry[1] == key
             and all(ref() is t for ref, t in zip(entry[0], sources))):
-        return entry[2]
+        return hold(entry[2])
     with span("norm.fold"):
         value = make(*sources)
     _DERIVED[owner] = (tuple(weakref.ref(t) for t in sources), key, value)
-    return value
+    return hold(value)
 
 
 def _fold(weight: torch.Tensor, scale: torch.Tensor,

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from detectinblur_tpu_torch.utils import cuda_build
+from detectinblur_tpu_torch.utils.profiling import counts_launches
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHANNEL_MULTIPLE = 8   # channels a 16-byte bf16 vector holds
@@ -75,6 +76,7 @@ def _check(y: torch.Tensor, shift: torch.Tensor,
                          f"float32 [{y.shape[1]}] on y's device")
 
 
+@counts_launches
 def conv_epilogue_kernel(y: torch.Tensor, shift: torch.Tensor,
                          residual: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
@@ -97,9 +99,6 @@ def conv_epilogue_kernel(y: torch.Tensor, shift: torch.Tensor,
                            f"{err}")
     conv_epilogue_kernel.launches += 1
     return out
-
-
-conv_epilogue_kernel.launches = 0
 
 
 class _Epilogue(torch.autograd.Function):

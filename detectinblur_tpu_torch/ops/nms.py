@@ -27,7 +27,7 @@ import torch
 
 from detectinblur_tpu_torch.ops.boxes import box_iou
 from detectinblur_tpu_torch.utils import cuda_build
-from detectinblur_tpu_torch.utils.profiling import span
+from detectinblur_tpu_torch.utils.profiling import counts_launches, span
 
 NEG_INF = -1e30
 
@@ -162,6 +162,7 @@ def kernel_args(sboxes: torch.Tensor, salive: torch.Tensor, thr: float):
                          float(thr), torch.cuda.current_stream().cuda_stream)
 
 
+@counts_launches
 def nms_alive(sboxes: torch.Tensor, salive: torch.Tensor,
               thr: float) -> torch.Tensor:
     """The greedy pass of ``_alive_sorted``: ``sboxes`` [M, N, 4] float32
@@ -201,9 +202,6 @@ def nms_alive(sboxes: torch.Tensor, salive: torch.Tensor,
                            " (1: N beyond the scan's shared memory)")
     nms_alive.launches += 1
     return alive
-
-
-nms_alive.launches = 0
 
 
 def _alive_sorted(sboxes: torch.Tensor, salive: torch.Tensor,

@@ -36,6 +36,7 @@ from detectinblur_tpu_torch.ops.roi_align import (
     roi_geometry,
 )
 from detectinblur_tpu_torch.utils import cuda_build
+from detectinblur_tpu_torch.utils.profiling import counts_launches
 
 OUTPUT_SIZE = 7
 SAMPLING_RATIO = 2
@@ -100,6 +101,7 @@ def _check_geometry(geom: RoIGeometry, n_rois: int, device) -> RoIGeometry:
     return RoIGeometry(*(t.contiguous() for t in geom))
 
 
+@counts_launches
 def roi_align_fwd(features: Sequence[torch.Tensor], geom: RoIGeometry,
                   rois_per_image: int) -> torch.Tensor:
     """The kernel alone: pool N rois [N, 7, 7, C] from ``geom``, which must
@@ -133,9 +135,7 @@ def roi_align_fwd(features: Sequence[torch.Tensor], geom: RoIGeometry,
     return out
 
 
-roi_align_fwd.launches = 0
-
-
+@counts_launches
 def roi_align_bwd(dout: torch.Tensor, geom: RoIGeometry, rois_per_image: int,
                   level_shapes: Sequence[Sequence[int]],
                   out_dtype: torch.dtype = torch.float32):
@@ -189,9 +189,6 @@ def roi_align_bwd(dout: torch.Tensor, geom: RoIGeometry, rois_per_image: int,
         return grads
     return [g.view(B, int(h), int(w), C) for g, (h, w) in zip(
         torch.split(flat.to(out_dtype), sizes), level_shapes)]
-
-
-roi_align_bwd.launches = 0
 
 
 class _RoIAlign(torch.autograd.Function):

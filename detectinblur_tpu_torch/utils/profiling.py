@@ -18,7 +18,11 @@ Port of ``detectinblur_tpu/utils/profiling.py``:
 kernels (CUPTI), and writes ``trace.json`` under ``logdir``. ``span`` is
 the port's one way to name a stage: a ``record_function`` range (the
 trace's ``user_annotation``) while a profiler records, and a shared no-op
-otherwise, so a span costs one flag check when nothing is traced.
+otherwise, so a span costs two flag checks when nothing is traced. While
+a CUDA graph capture (``utils/graphs.py``) runs under ``cut_at_spans``,
+its spans are also where one graph segment ends and the next begins.
+Each hand kernel's Python wrapper counts its launches
+(``counts_launches``, registered in ``LAUNCH_COUNTERS``).
 """
 
 from __future__ import annotations
@@ -30,18 +34,50 @@ import time
 import torch
 from torch.autograd.profiler import record_function
 
-_profiler_enabled = torch._C._autograd._profiler_enabled
+recording = torch._C._autograd._profiler_enabled   # () -> a profiler records
 _NO_SPAN = contextlib.nullcontext()
+_cut = None     # while a capture cuts at spans, its hook (``cut_at_spans``)
 
 
 def span(name: str):
     """A context naming the block ``name`` in a profiler's trace: a
     ``record_function`` range while a profiler records (``trace``,
     ``torch.profiler.profile``), else a shared no-op. The device work
-    launched inside is tied to the range by the launching thread."""
-    if _profiler_enabled():
+    launched inside is tied to the range by the launching thread. Under
+    ``cut_at_spans`` the hook's context, where it gives one."""
+    if _cut is not None:
+        section = _cut(name)
+        if section is not None:
+            return section
+    if recording():
         return record_function(name)
     return _NO_SPAN
+
+
+@contextlib.contextmanager
+def cut_at_spans(hook):
+    """While open, ``span(name)`` returns ``hook(name)`` where that is not
+    None: a CUDA graph capture's section, which ends one graph segment
+    and begins the next (``utils/graphs.py``)."""
+    global _cut
+    outer, _cut = _cut, hook
+    try:
+        yield
+    finally:
+        _cut = outer
+
+
+LAUNCH_COUNTERS = []   # the hand kernels' wrappers, ``counts_launches``
+
+
+def counts_launches(wrapper):
+    """Register ``wrapper``, a hand kernel's Python wrapper that adds 1 to
+    its ``launches`` at each launch. A replay of CUDA graphs runs no
+    wrapper: it adds to the wrapper's ``replayed`` the launches its
+    capture counted (``utils/graphs.py``)."""
+    wrapper.launches = wrapper.replayed = 0
+    LAUNCH_COUNTERS.append(wrapper)
+    return wrapper
 
 
 @contextlib.contextmanager
